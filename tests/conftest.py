@@ -22,3 +22,9 @@ jax.config.update("jax_platforms", "cpu")
 # (r4: deterministic crashes in compilation_cache.put_executable_and_time
 # and the matching get path, /tmp/pytest_r4{b,c}.log).  CPU compiles are
 # cheap; reliability wins.
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips (inside the test) where none is present"
+    )
