@@ -1,28 +1,43 @@
-"""probly_search_tpu_torch — the BM25 serving path of probly-search on a
-CUDA card, in PyTorch with hand-written CUDA kernels.
+"""probly_search_tpu_torch — probly-search on a CUDA card, in PyTorch with
+hand-written CUDA kernels.
 
 Counterpart of ``probly_search_tpu`` (the JAX package, which stays the
-reference).  The host layers are shared by import: ``Index``, its segments
-and native build, ``IndexConfig``, the tokenizers and the f64 oracle
-``Index.query``.  The device path is the port's own:
+reference).  The port keeps its own copies of the host layers: ``Index``, its
+segments and native build, snapshots, ``IndexConfig``, the tokenizers, the
+scorers' host halves and the f64 oracle ``Index.query``.  Their state equals
+the JAX package's bit for bit, and ``index.snapshot`` carries an index saved
+by either package into the other.  The device path is the port's own:
 
-    from probly_search_tpu_torch import DeviceIndex, Index, IndexConfig, bm25
-    dix = DeviceIndex(ix, device="cuda")
-    scores, slots, keys = dix.query_batch_async(queries, bm25.new()).get_arrays()
+    from probly_search_tpu_torch import Index, bm25, zero_to_one
+    ix = Index(1)                      # device="cuda" unless asked otherwise
+    ix.add_documents_columnar(keys, [texts])
+    rows = ix.query_batch(queries, zero_to_one.new(), top_k=10)
+    scores, slots, keys = ix.query_batch_async(queries, bm25.new()).get_arrays()
 
-This package imports torch and never JAX.
+This package imports torch and never JAX, nor anything of the JAX package.
 """
 
-from probly_search_tpu import Index, IndexConfig, whitespace_tokenizer
-
+from .config import HostFallbackError, IndexConfig
+from .index.core import DocumentDetails, DocumentPointer, FieldDetails, Index, QueryResult
 from .index.device import DeviceIndex, PendingBatch
-from .models import bm25
+from .models import bm25, zero_to_one
+from .models.base import FieldData, ScoreCalculator, TermData
+from .utils.tokenizers import whitespace_tokenizer
 
 __all__ = [
     "DeviceIndex",
     "PendingBatch",
     "Index",
     "IndexConfig",
+    "HostFallbackError",
+    "QueryResult",
+    "DocumentDetails",
+    "DocumentPointer",
+    "FieldDetails",
+    "ScoreCalculator",
+    "TermData",
+    "FieldData",
     "bm25",
+    "zero_to_one",
     "whitespace_tokenizer",
 ]

@@ -17,11 +17,15 @@ else 2 + 2F rounded up to a multiple of 8), as in the JAX package:
   rec[1+F:1+2F]  per-field doc length, f32 bits
   rec[1+2F]      doc liveness at snapshot time (0/1)
 
+Two-phase scorers (zero-to-one) take the z2o window engine of
+``ops/z2o_device.py``, which shares this module's job expansion, packed
+result formats and ``PendingBatch``.
+
 What the port does not do yet (each raises or is documented): block-max
 pruning (``prune_blocks`` is not honoured; pruning is exact, so results are
 unchanged), term-range jobs (expansion-heavy terms plan as per-expansion
 jobs), light classes, per-class dispatch, template save/load and prewarm,
-zero-to-one, sharding and ``fetch_windows_jointly``.
+sharding and ``fetch_windows_jointly``.
 """
 
 from __future__ import annotations
@@ -33,14 +37,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from probly_search_tpu.config import HostFallbackError
-from probly_search_tpu.index.segment import escape_terms_fixed, probe_terms_fixed
-from probly_search_tpu.models.base import QueryResult
-from probly_search_tpu.utils.metrics import metrics
-from probly_search_tpu.utils.tokenizers import whitespace_tokenizer
-
+from ..config import HostFallbackError
+from ..models.base import QueryResult
 from ..ops.fused_query import fused_query_topk, gather_score
 from ..ops.merge import INVALID_KEY, merge_scores_topk, merge_scores_topk_presorted
+from ..utils.metrics import metrics
+from ..utils.tokenizers import whitespace_tokenizer
+from .core import Index
+from .segment import escape_terms_fixed, probe_terms_fixed
 
 _MAX_CHAR = "\U0010FFFF"  # prefix upper-bound sentinel
 
@@ -87,21 +91,22 @@ class ScoreLanes:
     qterm: Any  # int32[B, NC] — dense query-term index per chunk
 
 
-def expand_chunks(jobs, chunk: int, num_chunks: int):
-    """Expand job descriptors int32[B, NJ, 3] into per-chunk tables.
+def chunk_tables(jobs, chunk: int, num_chunks: int):
+    """Expand job descriptors int32[B, NJ, W] (word 0 the start, word 1
+    ``len | qterm << 26``) into per-chunk tables.
 
     A job's chunks are contiguous stride-C slices off one 128-aligned base,
     so only its first chunk carries an alignment skip (< 128 lanes).  Returns
-    (c_start, c_skip, c_len, c_qterm) int32[B, NC] and c_scale f32[B, NC];
-    chunks past a row's last job are dead (start, skip, len all 0).  The
-    integer tables equal the JAX prologue's bit for bit."""
+    (take, c_start, c_skip, c_len, c_qterm), where ``take`` maps any per-job
+    [B, NJ] word to its per-chunk [B, NC] table; chunks past a row's last job
+    are dead (start, skip, len all 0).  The integer tables equal the JAX
+    prologue's bit for bit."""
     C, NC = chunk, num_chunks
     B, NJ, _ = jobs.shape
     jstart = jobs[..., 0]
     w1 = jobs[..., 1]
     jlen = w1 & _MAX_JOB_LEN
     jqterm = (w1 >> _LEN_BITS) & ((1 << _QT_BITS) - 1)
-    jscale = jobs[..., 2].contiguous().view(torch.float32)
 
     base = (jstart // 128) * 128
     skip0 = jstart - base
@@ -126,7 +131,15 @@ def expand_chunks(jobs, chunk: int, num_chunks: int):
     c_len = torch.where(c_valid, c_len, 0)
     c_start = torch.where(c_valid, c_start, 0)
     c_skip = torch.where(c_valid, c_skip, 0)
-    return c_start, c_skip, c_len, take(jqterm), take(jscale)
+    return take, c_start, c_skip, c_len, take(jqterm)
+
+
+def expand_chunks(jobs, chunk: int, num_chunks: int):
+    """Expand BM25 job descriptors int32[B, NJ, 3] into per-chunk tables:
+    (c_start, c_skip, c_len, c_qterm) int32[B, NC] and c_scale f32[B, NC]
+    (word 2, the job's premultiplied scale).  See ``chunk_tables``."""
+    take, *tables = chunk_tables(jobs, chunk, num_chunks)
+    return (*tables, take(jobs[..., 2].contiguous().view(torch.float32)))
 
 
 def _query_step(
@@ -347,6 +360,12 @@ class DeviceIndex:
     NJ_BUCKETS = (4, 8, 16, 32, 64, 128, 256)
 
     def __init__(self, index, device="cuda") -> None:
+        if not isinstance(index, Index):
+            raise TypeError(
+                f"DeviceIndex takes probly_search_tpu_torch.Index, not {type(index).__module__}."
+                f"{type(index).__name__}; carry another package's index across with "
+                "probly_search_tpu_torch.index.snapshot"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -356,8 +375,6 @@ class DeviceIndex:
             raise ValueError(f"DeviceIndex runs on cuda or cpu, not {self.device}")
         if index.config.light_chunk_size:
             raise _not_ported("light_chunk_size (light classes)", "item 8, per-class dispatch")
-        if index._mesh is not None:
-            raise _not_ported("doc-sharded serving (an attached mesh)", "item 7, M9")
         index._flush_pending()
         self.version = index.version
         self._index = index
@@ -434,6 +451,8 @@ class DeviceIndex:
         # pool growth across concurrent submitters.
         self._plan_pools: Dict[Any, Dict[str, Any]] = {}
         self._qplan_pools: Dict[Any, Dict[str, Any]] = {}
+        # Per-tokenizer pooled zero-to-one query plans (ops/z2o_device.py).
+        self._z2o_qplans: Dict[Any, Dict[str, Any]] = {}
         self._plan_lock = threading.RLock()
         # Heavy-query result cache: (scorer key, job-table bytes, boosts) ->
         # (scores f32[Kc] | None, slots int32[Kc]); snapshot-static.
@@ -971,8 +990,6 @@ class DeviceIndex:
             raise _not_ported("per_class_dispatch", "item 8, per-class dispatch")
         if not cfg.single_dispatch_windows:
             raise _not_ported("single_dispatch_windows=False", "item 8, per-class dispatch")
-        if getattr(scorer, "device_two_phase", False):
-            raise _not_ported("zero-to-one scoring", "item 5, M7")
 
     def save_templates(self, path: str) -> int:
         raise _not_ported("save_templates", "item 4, M8")
@@ -1005,8 +1022,14 @@ class DeviceIndex:
         """Plan, upload and launch a query window without blocking.
 
         Queries regroup into shape classes across the whole window, so
-        submit the largest windows the latency budget allows."""
+        submit the largest windows the latency budget allows.  A two-phase
+        scorer (zero-to-one) takes the z2o window engine, which ignores
+        ``fields_boost`` as the scorer does."""
         self._check_supported(scorer)
+        if getattr(scorer, "device_two_phase", False):
+            from ..ops.z2o_device import z2o_query_batch_async
+
+            return z2o_query_batch_async(self, queries, tokenizer, top_k, scorer=scorer)
         if fields_boost is None:
             fields_boost = [1.0] * self.num_fields
         k = top_k or self.config.default_top_k
@@ -1151,19 +1174,23 @@ class DeviceIndex:
         for (idxs, *_a), (_, b_out, *_b) in zip(dispatches, class_specs):
             layout.append((idxs, row))
             row += b_out
-        host = event = None
-        if self.device.type == "cuda" and self.config.prefetch_results:
-            # Start the D2H copy behind this window's kernels, so it streams
-            # while later windows compute; the drain then waits on this
-            # window's event only.
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
         return PendingBatch(
             self, len(queries), packed=packed, layout=layout, host_rows=host_rows,
-            fmt=fmt, k=k, array_rows=array_rows, host=host, event=event,
+            fmt=fmt, k=k, array_rows=array_rows, **self._start_fetch(packed),
         )
+
+    def _start_fetch(self, packed) -> Dict[str, Any]:
+        """Start the D2H copy of a window's packed rows behind its kernels
+        (``IndexConfig.prefetch_results``), so it streams while later windows
+        compute; the drain then waits on this window's event only.  Returns
+        the ``host`` / ``event`` arguments of ``PendingBatch``."""
+        if self.device.type != "cuda" or not self.config.prefetch_results:
+            return {}
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return {"host": host, "event": event}
 
     def to_results(self, top_scores: np.ndarray, top_docs: np.ndarray):
         out: List[List[QueryResult]] = []

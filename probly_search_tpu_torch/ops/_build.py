@@ -1,7 +1,8 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds).  The library is
+interface (no PyTorch headers, so a build takes seconds): one ``nvcc -c`` per
+source, all started together, then one link.  The library is
 named by a hash of its sources and flags and kept under ``build/torch_kernels/``
 beside the package, so an unchanged tree reuses it and an edited one rebuilds.
 ``--use_fast_math`` is deliberately absent: division must stay IEEE-rounded,
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -68,6 +69,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_query_error_string.restype = ctypes.c_char_p
     lib.fused_query_max_smem.argtypes = [i]
     lib.fused_query_max_smem.restype = i
+    lib.fused_z2o.argtypes = [
+        i, p, ctypes.c_longlong, p, p, p, p, p, p, p,
+        i, i, i, i, i, p, p, p,
+    ]
+    lib.fused_z2o.restype = i
+    lib.fused_z2o_smem_bytes.argtypes = [i, i, i]
+    lib.fused_z2o_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -80,14 +88,29 @@ def load() -> ctypes.CDLL:
         so = library_path()
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            srcs = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
+            tag = f"{so.stem}.{os.getpid()}"
+            nvcc = _nvcc()
+            jobs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+                )))
+            for cmd, _obj, proc in jobs:
+                err = proc.communicate()[1]
+                _check(cmd, proc.returncode, err)
+            tmp = so.with_name(f"{tag}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _c, o, _p in jobs)]
             res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-                )
+            _check(cmd, res.returncode, res.stderr)
+            for _cmd, obj, _proc in jobs:
+                obj.unlink()
             os.replace(tmp, so)
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib
+
+
+def _check(cmd, returncode: int, stderr: str) -> None:
+    if returncode:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr}")

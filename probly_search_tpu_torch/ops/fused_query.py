@@ -130,9 +130,9 @@ def fused_query_topk(
         raise ValueError(f"fused_query_topk runs on cpu or cuda, not {rec.device}")
     if not _kernel_scores(scorer):
         raise NotImplementedError(
-            f"{type(scorer).__name__}: only probly_search_tpu_torch.bm25 runs on a "
-            "CUDA device (the kernel cannot call a Python device_score_lanes; "
-            "zero-to-one is ROADMAP Queue 1, item 5, M7)"
+            f"{type(scorer).__name__}: of the one-phase scorers only "
+            "probly_search_tpu_torch.bm25 runs on a CUDA device (the kernel cannot "
+            "call a Python device_score_lanes)"
         )
     if phase not in launches:
         raise ValueError(f"unknown phase {phase!r}")

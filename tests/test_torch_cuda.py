@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain torch version, on a CUDA device.
+"""The CUDA kernels against their plain torch versions, on a CUDA device.
 
 Every test here needs a card and skips without one.  The file imports no JAX,
 so it runs where only torch is installed:
@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from probly_search_tpu_torch import bm25
+from probly_search_tpu_torch import bm25, zero_to_one
 from probly_search_tpu_torch.index import device as pdev
 from probly_search_tpu_torch.ops import fused_query as fq
+from probly_search_tpu_torch.ops import fused_z2o as fz
 from probly_search_tpu_torch.testing import assert_topk_agree
 
-from .torch_util import QB, make_rec, make_tables, to_torch
+from .torch_util import QB, make_rec, make_tables, make_z2o_tables, to_torch
 
 
 @pytest.mark.cuda
@@ -108,3 +109,56 @@ def test_cuda_rejects_other_scorers():
 
     with pytest.raises(NotImplementedError):
         fq.fused_query_topk(Custom(), *args, chunk=128, k=10, qterm_bits=QB, num_fields=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,NC,F", [(128, 6, 2), (1024, 8, 1)])
+def test_z2o_kernel_matches_plain_on_cuda(C, NC, F):
+    """K4 against its plain version; repeat runs bit-equal."""
+    _cuda()
+    rng = np.random.default_rng(C + NC + F)
+    rec, starts, lens = make_rec(rng, F=F, n_docs=3000, n_terms=400, C=C)
+    tables = to_torch(make_z2o_tables(rng, starts, lens, 64, NC, C=C), "cuda")
+    rec_t = torch.from_numpy(rec).cuda()
+    kw = dict(chunk=C, k=10, num_fields=F)
+    before = fz.launches["fused_z2o"]
+    ks, kd = fz.fused_z2o_topk(rec_t, *tables, **kw)
+    ks2, kd2 = fz.fused_z2o_topk(rec_t, *tables, **kw)
+    torch.cuda.synchronize()
+    assert fz.launches["fused_z2o"] == before + 2
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    ps, pd = fz.fused_z2o_topk_reference(rec_t, *tables, **kw)
+    assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
+    assert (kd >= 0).any()
+
+
+@pytest.mark.cuda
+def test_z2o_serving_on_cuda_matches_cpu():
+    """Zero-to-one over a small two-field corpus with a latent delete: the
+    window on the card (K4 on its fast classes, the lockstep program on
+    shared-node queries) against the same window on the CPU."""
+    _cuda()
+    import random
+
+    from probly_search_tpu_torch import Index, IndexConfig
+
+    rng = random.Random(8)
+    vocab = ["".join(rng.choice("abcdefg") for _ in range(rng.randint(1, 4))) for _ in range(80)]
+    ix = Index(2, config=IndexConfig(chunk_size=128))
+    texts = [[" ".join(rng.sample(vocab, n)) for _ in range(500)] for n in (3, 8)]
+    ix.add_documents_columnar(list(range(500)), texts)
+    ix.remove_document(11)
+    window = [" ".join(rng.sample(vocab, rng.randint(1, 2))) for _ in range(120)]
+    window += [f"{t} {t}" for t in vocab[:5]] + [vocab[5][:1], "", "zzzz"]
+    before = dict(fz.launches)
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    got = dix.query_batch_async(window, zero_to_one.new(), top_k=10).get_arrays()
+    assert fz.launches["fused_z2o"] > before["fused_z2o"]
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    want = cpu.query_batch_async(window, zero_to_one.new(), top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], want[0], want[1])
+    rows = ix.query_batch(window[:20], zero_to_one.new(), top_k=10)  # Index on "cuda"
+    assert [[r.key for r in row] for row in rows] == [
+        [int(k) for k, sl in zip(keys, slots) if sl >= 0] for keys, slots in zip(got[2][:20], got[1][:20])
+    ]
+

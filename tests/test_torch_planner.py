@@ -1,11 +1,16 @@
-"""The torch port's host planner against the JAX engine's, on one Index.
+"""The torch port's host planner against the JAX engine's, on one index.
 
-Integer work, so the bar is bit-exact: the posting record array, the job
-tables, the shape classes and the template packing (with a refreeze).  Only
-host code of the JAX DeviceIndex runs here, no device program.
+The JAX Index is carried into the port through a snapshot
+(``probly_search_tpu_torch.index.snapshot``), so both planners see the same
+state.  Integer work, so the bar is bit-exact: the posting record array, the
+job tables, the shape classes and the template packing (with a refreeze).
+Only host code of the JAX DeviceIndex runs here, no device program.
 """
 
+import dataclasses
+import os
 import random
+import tempfile
 
 import numpy as np
 import pytest
@@ -13,7 +18,10 @@ import pytest
 import probly_search_tpu.index.device as jdev
 from probly_search_tpu import Index, IndexConfig
 from probly_search_tpu import bm25 as jbm25
+from probly_search_tpu.index import snapshot as jsnap
+import probly_search_tpu_torch as pt
 from probly_search_tpu_torch import DeviceIndex, bm25
+from probly_search_tpu_torch.index import snapshot as psnap
 
 from .util import Doc, text_extract, title_extract, tokenizer
 
@@ -46,10 +54,19 @@ def _index(seed=0, **cfg):
     return ix, queries
 
 
+def port_index(ix):
+    """The port's Index carried across from the JAX Index ``ix``."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ix.npz")
+        jsnap.save(ix, path)
+        cfg = pt.IndexConfig(**dataclasses.asdict(ix.config))
+        return psnap.load(path, config=cfg, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def engines():
     ix, queries = _index()
-    return ix, queries, DeviceIndex(ix, device="cpu"), jdev.DeviceIndex(ix)
+    return ix, queries, DeviceIndex(port_index(ix), device="cpu"), jdev.DeviceIndex(ix)
 
 
 def test_snapshot_arrays(engines):
@@ -77,7 +94,7 @@ def test_plan_batch(engines, part):
 
 def test_fallback_caps():
     ix, queries = _index(seed=1, max_expansions=3)
-    p, j = DeviceIndex(ix, device="cpu"), jdev.DeviceIndex(ix)
+    p, j = DeviceIndex(port_index(ix), device="cpu"), jdev.DeviceIndex(ix)
     pp, pfb = p.plan_batch(queries, tokenizer, bm25.new())
     jp, jfb = j.plan_batch(queries, tokenizer, jbm25.new())
     assert pfb == jfb and len(pfb) >= 2  # the 17-term query and prefix queries
@@ -88,7 +105,8 @@ def test_fallback_caps():
 @pytest.mark.parametrize("pow2_row_split", [True, False])
 def test_pack_dispatches(engines, monkeypatch, pow2_row_split):
     ix, queries, p, j = engines
-    monkeypatch.setattr(ix.config, "pow2_row_split", pow2_row_split)
+    for cfg in (ix.config, p.config):
+        monkeypatch.setattr(cfg, "pow2_row_split", pow2_row_split)
     queries = queries * 40  # classes of more than 512 rows split differently
     pp, _pfb, jp, _jfb = _plans(engines, queries)
     pd = p.pack_dispatches(len(queries), pp)

@@ -19,11 +19,11 @@ import numpy as np
 import pytest
 
 import probly_search_tpu.index.device as jdev
-from probly_search_tpu import Index, IndexConfig
+from probly_search_tpu import Index as JIndex
+from probly_search_tpu import IndexConfig as JConfig
 from probly_search_tpu import bm25 as jbm25
-from probly_search_tpu import zero_to_one
-from probly_search_tpu.utils.metrics import metrics
-from probly_search_tpu_torch import DeviceIndex, bm25
+from probly_search_tpu_torch.utils.metrics import metrics
+from probly_search_tpu_torch import DeviceIndex, Index, IndexConfig, bm25, zero_to_one
 from probly_search_tpu_torch.index import device as pdev
 from probly_search_tpu_torch.testing import assert_topk_agree
 
@@ -34,39 +34,43 @@ K = 10
 
 
 def _corpus(seed=21):
+    """The JAX Index and the port's, built from the same documents."""
     rng = random.Random(seed)
     vocab = ["".join(rng.choice("abcdefg") for _ in range(rng.randint(2, 4))) for _ in range(90)]
     hot = ["hot%d" % i for i in range(4)]
-    ix = Index(2, config=IndexConfig(chunk_size=128))
+    jix = JIndex(2, config=JConfig(chunk_size=128))
+    ix = Index(2, config=IndexConfig(chunk_size=128), device="cpu")
     for i in range(420):
         title = " ".join([rng.choice(hot)] + [rng.choice(vocab) for _ in range(rng.randint(0, 3))])
         body = " ".join(rng.choice(hot + vocab) for _ in range(rng.randint(1, 8)))
         doc = Doc(id=i, title=title, text=body)
-        ix.add_document([title_extract, text_extract], tokenizer, i, doc)
+        for x in (jix, ix):
+            x.add_document([title_extract, text_extract], tokenizer, i, doc)
     for key in (3, 50, 51, 200):
-        ix.remove_document(key)  # latent deletes: no vacuum
+        for x in (jix, ix):
+            x.remove_document(key)  # latent deletes: no vacuum
     window = [" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3))) for _ in range(30)]
     window += [
         "hot0", "hot0 hot1 hot2", "hot1 hot3 %s" % vocab[4], "a", "bc", "",
         "zzzz", "zzzz %s" % vocab[7], " ".join(vocab[:17]),
     ]
-    return ix, window
+    return jix, ix, window
 
 
 @pytest.fixture(scope="module")
 def served():
-    ix, w1 = _corpus()
+    jix, ix, w1 = _corpus()
     w2 = list(reversed(w1))  # same composition: reuses w1's template
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdev, "_FUSED_MODE", "off")
         jdev._STEP_CACHE.clear()
-        j = jdev.DeviceIndex(ix)
+        j = jdev.DeviceIndex(jix)
         jout = [j.query_batch_async(w, jbm25.new(), fields_boost=BOOST, top_k=K) for w in (w1, w2)]
         jarr = [h.get_arrays() for h in jout]
         jrows = j.query_batch_async(w1, jbm25.new(), fields_boost=BOOST, top_k=K).get()
         jdev._STEP_CACHE.clear()
     p = DeviceIndex(ix, device="cpu")
-    return ix, p, (w1, w2), jarr, jrows
+    return jix, p, (w1, w2), jarr, jrows
 
 
 def _port(p, w, **cfg):
@@ -196,8 +200,9 @@ def test_not_ported_options_raise(served):
             _port(p, windows[0], **cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceIndex(Index(1, config=IndexConfig(light_chunk_size=128)), device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        p.query_batch_async(windows[0], zero_to_one.new())
+    # zero-to-one is served now (tests/test_torch_z2o.py holds its results)
+    z2o = p.query_batch_async(windows[0], zero_to_one.new(), top_k=K).get_arrays()
+    assert z2o[1].shape == (len(windows[0]), K) and (z2o[1] >= 0).any()
     for call in (p.save_templates, p.load_templates):
         with pytest.raises(NotImplementedError, match="M8"):
             call("templates.json")
@@ -205,18 +210,16 @@ def test_not_ported_options_raise(served):
         p.prewarm(bm25.new())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pdev.fetch_windows_jointly([p.query_batch_async(windows[0], bm25.new())])
-    meshed = Index(1)
-    meshed.attach_mesh(object())  # the port refuses any attached mesh
     with pytest.raises(NotImplementedError, match="M9"):
-        DeviceIndex(meshed, device="cpu")
+        Index(1, device="cpu").attach_mesh(object())  # the port refuses any mesh
 
 
 def test_chunk_width_not_a_power_of_two(monkeypatch):
     """A chunk width that is not a power of two takes the staged torch path
     with the general sort merge, never the fused kernel's wrapper."""
-    ix, w = _corpus(seed=5)
+    jix, ix, w = _corpus(seed=5)
     ix.config.chunk_size = 384
     p = DeviceIndex(ix, device="cpu")
     monkeypatch.setattr(pdev, "fused_query_topk", None)
     s, sl, _k = p.query_batch_async(w, bm25.new(), fields_boost=BOOST, top_k=K).get_arrays()
-    assert_topk_agree(s, sl, *_oracle(ix, w))
+    assert_topk_agree(s, sl, *_oracle(jix, w))

@@ -49,3 +49,19 @@ def make_tables(rng, starts, lens, B, NC, C=128, max_len=None):
 
 def to_torch(arrays, device="cpu"):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+def score_ranks(c_score):
+    """Per-row dense rank of each chunk's entry score, descending, equal
+    scores equal: the fused z2o kernel's secondary key (int32[B, NC])."""
+    return np.stack([np.searchsorted(np.unique(-row), -row) for row in c_score]).astype(np.int32)
+
+
+def make_z2o_tables(rng, starts, lens, B, NC, C=128, scores=(1.0, 0.75, 2.0 / 3.0, 0.5)):
+    """``make_tables`` for the fused z2o kernel: (c_start, c_skip, c_len,
+    c_qterm, c_score, c_rank, qlen), entry scores drawn from ``scores`` so
+    that equal scores share a rank."""
+    c_start, c_skip, c_len, c_qterm, _scale = make_tables(rng, starts, lens, B, NC, C=C)
+    c_score = rng.choice(np.asarray(scores, np.float32), (B, NC))
+    qlen = rng.integers(1, 5, B).astype(np.float32)
+    return [c_start, c_skip, c_len, c_qterm, c_score, score_ranks(c_score), qlen]
