@@ -12,12 +12,28 @@ Phases (any failure raises, so the exit code is not 0):
      times;
   2z. the zero-to-one kernel (K4) the same way: C = 1024, B = 1024,
      NC 2, 3, 4, 6, 8, F 1, 2, 4, k 10 and 128;
+  2m. the standalone merge kernel (K5) against its plain version on seeded
+     rows: run 0 (full sort) at B 1 and 2, L 2,048 .. 2^23 (3,072, 24,576
+     and 3 * 2^20 not powers of two); run 1,024 at B 24, L 24,576 and
+     32,768, excl on and off; k 10 and 128; duplicate keys, pads, dead docs
+     and equal totals;
+  2p. the launch probe (P1) against x + 1, bit-equal, over chains of 1, 4
+     and 16 launches: per-launch time from the host clock and CUDA events;
   3. the BM25 main path at real size: top-10 over the 1,000,000-doc bench
      corpus (bench.py's generator), two 16,384-query windows, 8 windows
      served through DeviceIndex.query_batch_async with a depth-4 pipeline
      and paired late drains; launch counts, ms/window, QPS, recall@10
      against the f64 oracle on 256 queries, and every class of the first
-     window held kernel against plain on its real tables;
+     window held kernel against plain on its real tables (K1; K3 and K5 on
+     the wide classes);
+  3r. term-range jobs on that index: phase 3's first window with every 64th
+     query's first term cut to its first four characters (a prefix of 100
+     terms) and the last three queries replaced by t0, t00 and t1, served
+     cold, then warm; classes by route, K5 launches, ms submit to drained;
+     recall@10 of every range query against the f64 vectorized BM25 host
+     path, the 16 smallest also against Index.query, 0 host rows; K5 held
+     against plain on every range class and on the heavy-cache classes of
+     t0, t00 and t1;
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route, and the rows held against the f64 oracle on 64 queries;
   4. the zero-to-one main path at the repo's zero_to_one_50k configuration
@@ -54,8 +70,10 @@ from bench import make_corpus, make_queries  # noqa: E402
 from probly_search_tpu_torch import DeviceIndex, Index, IndexConfig, bm25, zero_to_one  # noqa: E402
 from probly_search_tpu_torch.index import device as pdev  # noqa: E402
 from probly_search_tpu_torch.ops import _build  # noqa: E402
+from probly_search_tpu_torch.ops import fused_merge as fm  # noqa: E402
 from probly_search_tpu_torch.ops import fused_query as fq  # noqa: E402
 from probly_search_tpu_torch.ops import fused_z2o as fz  # noqa: E402
+from probly_search_tpu_torch.ops import launch_probe as lp  # noqa: E402
 from probly_search_tpu_torch.ops import z2o_device as pz  # noqa: E402
 from probly_search_tpu_torch.testing import ATOL, RTOL, assert_topk_agree  # noqa: E402
 
@@ -67,6 +85,10 @@ LANES_NC = (24, 32)
 TOP_KS = (10, 128)
 Z2O_NC = (2, 3, 4, 6, 8)
 Z2O_F = (1, 2, 4)
+MERGE_L_FULL = (2048, 3072, 16384, 24576, 1 << 20, 3 << 20, 1 << 23)
+MERGE_L_RUNS = (24576, 32768)
+PROBE_CHAINS = (1, 4, 16)
+INT32_MAX = 2**31 - 1
 N_DOCS = 1_000_000
 WINDOW = 16384
 TOK = pdev.whitespace_tokenizer
@@ -87,6 +109,17 @@ KERNELS = {
         "probly_search_tpu_torch/csrc/fused_z2o.cu",
         "probly_search_tpu/ops/pallas_z2o.py:393 (fused_z2o_topk; pallas_call :444, "
         "_z2o_kernel :180)",
+    ),
+    "merge_topk": (
+        "merge_topk",
+        "probly_search_tpu_torch/csrc/fused_merge.cu",
+        "probly_search_tpu/ops/pallas_merge.py:387 (merge_scores_topk_pallas; pallas_call "
+        ":412, merge_body :252)",
+    ),
+    "probe_add": (
+        "probe_add",
+        "probly_search_tpu_torch/csrc/launch_probe.cu",
+        "benchmarks/profile_launch.py:29 (pallas_add; pallas_call :30)",
     ),
 }
 # Least time bounds: NVIDIA's H100 SXM data sheet (80 GB HBM3 at 3.35 TB/s,
@@ -211,8 +244,8 @@ def check_lanes(scorer, rec, tables, scalars, k, label):
     assert torch.equal(fin, torch.isfinite(ls)), f"{label}: -inf lanes differ"
     torch.testing.assert_close(ls[fin], ps[fin], rtol=RTOL, atol=ATOL)
     err = float((ls[fin] - ps[fin]).abs().max()) if bool(fin.any()) else 0.0
-    # merged top-k through the torch merge, against the plain full phase
-    ms_, md_ = pdev.merge_scores_topk_presorted(lk, ls, k, QB, C, True)
+    # merged top-k through K5, against the plain full phase
+    ms_, md_ = fm.merge_scores_topk_fused(lk, ls, k, QB, run=C, excl=True, max_seg=lk.shape[1] // C)
     fs, fd = fq.fused_query_topk_reference(scorer, rec, *tables, scalars, **{**kw, "phase": "full"})
     err = max(err, assert_topk_agree(ms_.cpu(), md_.cpu(), fs.cpu(), fd.cpu()))
     ms = cuda_ms(lambda: fq.fused_query_topk(scorer, rec, *tables, scalars, **kw))
@@ -228,6 +261,128 @@ def bm25_bound(tables, k, phase, F=1):
     payload = int(c_len.sum())
     out = B * k * 8 if phase == "full" else B * NC * C * 8
     return bound(payload, 2 + 2 * F, B * NC * 20 + 16 * F, out, payload * (10 * F + 2))
+
+
+def merge_bound(key, k):
+    """``bound`` of one K5 call: each input lane (key and score, 8 B) read
+    once, the [B, k] result written once; operations L * log2(L) compares
+    of a comparison sort plus the max and the sum per lane."""
+    B, L = key.shape
+    return bound(0, 0, B * L * 8, B * k * 8, B * (L * max(1, (L - 1).bit_length()) + 2 * L))
+
+
+def check_merge(key, score, k, label, run=0, excl=False, max_seg=0, quiet=False):
+    """K5 against its plain version: repeat runs bit-equal, top-k within the
+    tolerance; CUDA-event times and the bound.  Returns (err, ms, plain_ms,
+    bound_ms, bound_by)."""
+    kw = dict(run=run, excl=excl, max_seg=max_seg)
+    ks, kd = fm.merge_scores_topk_fused(key, score, k, QB, **kw)
+    ks2, kd2 = fm.merge_scores_topk_fused(key, score, k, QB, **kw)
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2), f"{label}: repeat runs differ"
+    ps, pd = fm.merge_scores_topk_fused_reference(key, score, k, QB, **kw)
+    err = assert_topk_agree(ks.cpu(), kd.cpu(), ps.cpu(), pd.cpu())
+    assert bool((kd >= 0).any()), f"{label}: no result"
+    ms = cuda_ms(lambda: fm.merge_scores_topk_fused(key, score, k, QB, **kw))
+    plain_ms = cuda_ms(lambda: fm.merge_scores_topk_fused_reference(key, score, k, QB, **kw))
+    bound_ms, by = merge_bound(key, k)
+    if not quiet:
+        log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({by})")
+    return err, ms, plain_ms, bound_ms, by
+
+
+def merge_rows_full(rng, B, L):
+    """run = 0 rows (a range class's lanes): unsorted keys over L / 8 docs
+    and 4 query terms, so (doc, qterm) keys repeat; 15% INT32_MAX pads;
+    scores from four values, so equal doc totals happen."""
+    docs = rng.integers(0, max(L // 8, 1), (B, L))
+    key = ((docs << QB) | rng.integers(0, 4, (B, L))).astype(np.int32)
+    key[rng.random((B, L)) < 0.15] = INT32_MAX
+    score = rng.choice(np.array([0.5, 1.0, 1.5, 2.25], np.float32), (B, L))
+    return dev(key), dev(score, torch.float32)
+
+
+def merge_rows_runs(rng, B, L, excl, run=C, n_docs=20_000):
+    """run > 0 rows (phase "lanes" output): ascending runs of ``run`` lanes
+    with -1 leading and INT32_MAX trailing pads, docs repeating across runs,
+    10% of the docs dead (-inf on all their lanes), scores from four values
+    (clamped at 0 with ``excl``, as the BM25 caller does)."""
+    key = np.full((B, L), INT32_MAX, np.int32)
+    score = rng.choice(np.array([0.5, 1.0, 1.5, -0.75], np.float32), (B, L))
+    if excl:
+        score = np.maximum(score, 0.0).astype(np.float32)
+    for r in range(B):
+        for c in range(L // run):
+            skip = int(rng.integers(0, 129))
+            n = int(rng.integers(0, run - skip + 1))
+            docs = np.sort(rng.choice(n_docs, size=n, replace=False))
+            key[r, c * run : c * run + skip] = -1
+            key[r, c * run + skip : c * run + skip + n] = (docs << QB) | int(rng.integers(0, 4))
+        live = (key[r] >= 0) & (key[r] != INT32_MAX)
+        dead = np.isin(key[r] >> QB, rng.choice(n_docs, size=n_docs // 10, replace=False))
+        score[r, live & dead] = -np.inf
+        score[r, ~live] = 0.0
+    return dev(key), dev(score, torch.float32)
+
+
+def phase_merge_kernels():
+    rng = np.random.default_rng(SEED + 2)
+    err_max = 0.0
+    for L in MERGE_L_FULL:
+        for B in (1, 2):
+            key, score = merge_rows_full(rng, B, L)
+            for k in TOP_KS:
+                err = check_merge(key, score, k, f"merge run=0 B={B} L={L} k={k}")[0]
+                err_max = max(err_max, err)
+            del key, score
+    for L in MERGE_L_RUNS:
+        for excl in (False, True):
+            key, score = merge_rows_runs(rng, 24, L, excl)
+            for k in TOP_KS:
+                label = f"merge run={C} B=24 L={L} excl={int(excl)} k={k}"
+                err = check_merge(key, score, k, label, run=C, excl=excl, max_seg=L // C)[0]
+                err_max = max(err_max, err)
+    torch.cuda.synchronize()
+    return err_max
+
+
+def phase_probe():
+    """P1 against x + 1 (bit-equal), then the probe's own run: chains of 1, 4
+    and 16 launches, per-launch time from the host clock and CUDA events.
+    Returns (launches, [kernel ms, plain ms, bound ms, bound_by], library ms)."""
+    x = torch.randn(lp.SHAPE, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
+
+    def chain(fn, n):
+        y = x
+        for _ in range(n):
+            y = fn(y)
+        return y
+
+    for n in PROBE_CHAINS:
+        got, want = chain(lp.probe_add, n), chain(lp.probe_add_reference, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"probe chain {n}: kernel and x + 1 differ"
+    reps = 200
+    lp.launches["probe_add"] = 0
+    per = {}
+    for n in PROBE_CHAINS:
+        for name, fn in (("kernel", lp.probe_add), ("plain", lp.probe_add_reference),
+                         ("library", lambda y: torch.add(y, 1.0))):
+            chain(fn, n)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                chain(fn, n)
+            torch.cuda.synchronize()
+            host_us = 1e6 * (time.perf_counter() - t) / (reps * n)
+            ev_ms = cuda_ms(lambda fn=fn, n=n: chain(fn, n), reps=reps) / n
+            per[name, n] = ev_ms
+            log(f"probe chain of {n:2d} {name:7s}: {host_us:.3f} us/launch host clock, "
+                f"{1e3 * ev_ms:.3f} us/launch CUDA events")
+    launches = lp.launches["probe_add"]
+    n = PROBE_CHAINS[-1]
+    bound_ms, by = bound(0, 0, x.numel() * 4, x.numel() * 4, x.numel())
+    return launches, [per["kernel", n], per["plain", n], bound_ms, by], per["library", n]
 
 
 def phase_kernels(scorer):
@@ -310,10 +465,10 @@ def check_window_classes(dix, dispatches, scorer, k):
     """Kernel against plain on every class of a real window (f32 scores).
     Returns per phase the largest error and [kernel ms, plain ms, bound ms,
     bound_by] summed over the classes."""
-    errs = {"full": 0.0, "lanes": 0.0}
-    times = {"full": [0.0, 0.0, 0.0, "bytes"], "lanes": [0.0, 0.0, 0.0, "bytes"]}
+    errs = {"full": 0.0, "lanes": 0.0, "merge_topk": 0.0}
+    times = {key: [0.0, 0.0, 0.0, "bytes"] for key in errs}
     scalars = torch.cat([dix.field_avg, torch.ones(1, device="cuda")])
-    for idxs, jobs_flat, nc, nj in dispatches:
+    for idxs, jobs_flat, nc, nj, _rng in dispatches:
         jobs = torch.from_numpy(jobs_flat).cuda().reshape(jobs_flat.shape[0], nj, 3)
         tables = pdev.expand_chunks(jobs, dix.CHUNK, nc)
         phase = "full" if nc * dix.CHUNK <= pdev._FUSED_MAX_LANES else "lanes"
@@ -330,13 +485,28 @@ def check_window_classes(dix, dispatches, scorer, k):
         t[3] = by if bound_ms else t[3]
         log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({by})")
+        if phase == "lanes":  # K5 merges the K3 lanes
+            ls, lk = fq.fused_query_topk(scorer, dix.rec, *tables, scalars, chunk=dix.CHUNK,
+                                         k=kk, qterm_bits=QB, num_fields=1, phase="lanes")
+            add_merge(errs, times, check_merge(lk, ls, kk, f"{label} merge", run=dix.CHUNK,
+                                               excl=True, max_seg=nc))
     return errs, times
+
+
+def add_merge(errs, times, result):
+    err, ms, plain_ms, bound_ms, by = result
+    errs["merge_topk"] = max(errs["merge_topk"], err)
+    t = times["merge_topk"]
+    t[0] += ms
+    t[1] += plain_ms
+    t[2] += bound_ms
+    t[3] = by
 
 
 def profile_windows(submit, n=4):
     """Windows one at a time (``submit(i)``, drain) under torch.profiler:
-    wall time per window, device busy time per window, kernels by device
-    time."""
+    wall time per window, device busy time per window (the sum of kernel
+    times), kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -345,7 +515,12 @@ def profile_windows(submit, n=4):
             submit(i).get_arrays()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t) / n
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # Device-side events only: a torch op's own entry carries the time of the
+    # kernels it launched, which appear again as events of their own.
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     if busy_ms == 0:
         log(f"one window alone: {wall_ms:.3f} ms wall; device time not measured (no device events)")
@@ -379,18 +554,16 @@ def phase_main(scorer, card):
     log(f"warm-up (2 passes): {time.time() - t2:.1f} s")
 
     dispatches, specs = window_classes(dix, windows[0], scorer, k)
-    for _idxs, jobs_flat, nc, nj in dispatches:
+    for _idxs, jobs_flat, nc, nj, _rng in dispatches:
         phase = "full" if nc * dix.CHUNK <= pdev._FUSED_MAX_LANES else "lanes"
         log(f"class nc={nc:5d} nj={nj:4d} rows={jobs_flat.shape[0]:6d} phase={phase}")
 
     # 8 windows, depth-4 pipeline, drained in pairs one pair late.
-    for key in fq.launches:
-        fq.launches[key] = 0
-    pdev.metrics.reset()
+    reset_bm25_counts()
     dt, lat_ms, out = serve_pipelined(lambda i: dix.query_batch_async(windows[i % 2], scorer, top_k=k))
-    launches = dict(fq.launches)
+    launches = {**fq.launches, **fm.launches}
     log(f"launch counts over the 8 served windows: {launches}")
-    assert launches["full"] > 0 and launches["lanes"] > 0, launches
+    assert launches["full"] > 0 and launches["lanes"] > 0 and launches["merge_topk"] > 0, launches
     for i, (_s, slots, keys) in enumerate(out):  # drained in submission order
         assert slots.shape == (WINDOW, k) and keys.shape == (WINDOW, k)
         assert (slots >= -1).all() and (slots < dix.num_slots).all()
@@ -421,6 +594,146 @@ def phase_main(scorer, card):
 
     errs, times = check_window_classes(dix, dispatches, scorer, k)
     return launches, errs, times, ix, dix, windows
+
+
+def reset_bm25_counts():
+    for counts in (fq.launches, fm.launches):
+        for key in counts:
+            counts[key] = 0
+    pdev.metrics.reset()
+
+
+def range_window(window):
+    """Phase 3's window with every 64th query's first term cut to its first
+    four characters (t01234 -> t012: 100 expansions, past the default
+    range_min_expansions of 64) and the last three queries replaced by t0,
+    t00 and t1 (10,000, 1,000 and 10,000 expansions).  Returns the queries
+    and the indices of those with a range term."""
+    w = list(window)
+    for i in range(0, len(w), 64):
+        first, *rest = w[i].split(" ")
+        w[i] = " ".join([first[:4], *rest])
+    w[-3:] = ["t0", "t00", "t1"]
+    return w, sorted(set(range(0, len(w), 64)) | {len(w) - 3, len(w) - 2, len(w) - 1})
+
+
+def phase_ranges(ix, dix, window, scorer, errs, times):
+    """Term-range jobs at full size (phase 3r); adds K5's checks on the
+    window's range classes to ``errs`` / ``times``.  Returns K5's launches
+    over the cold and the warm window."""
+    import dataclasses
+
+    k = 10
+    w, rq = range_window(window)
+    shapes, packed = [], []
+    real_merge, real_pack = pdev.merge_scores_topk_fused, dix.pack_dispatches
+
+    def merge_spy(key, *a, **kw):
+        shapes.append(tuple(key.shape))
+        return real_merge(key, *a, **kw)
+
+    def pack_spy(n, plan):
+        packed.append(real_pack(n, plan))
+        return packed[-1]
+
+    reset_bm25_counts()
+    pdev.merge_scores_topk_fused, dix.pack_dispatches = merge_spy, pack_spy
+    ms = {}
+    try:
+        for run in ("cold", "warm"):
+            packed.clear()
+            t = time.perf_counter()
+            _s, slots, _keys = dix.query_batch_async(w, scorer, top_k=k).get_arrays()
+            torch.cuda.synchronize()
+            ms[run] = 1e3 * (time.perf_counter() - t)
+    finally:
+        pdev.merge_scores_topk_fused = real_merge
+        del dix.pack_dispatches
+    counts = {**fq.launches, **fm.launches}
+    ctr = pdev.metrics.snapshot()["counters"]
+    routes = {}
+    for idxs, _jobs, nc, _nj, rng in packed[-1]:
+        route = "range+K5" if rng else "K1" if nc * dix.CHUNK <= pdev._FUSED_MAX_LANES else "K3+K5"
+        r = routes.setdefault(route, [0, 0])
+        r[0] += 1
+        r[1] += len(idxs)
+    lanes = [L for _B, L in shapes]
+    plan, fallback = dix.plan_batch(w, TOK, scorer)
+    range_host = sorted(set(fallback) & set(rq))
+    log(f"3r window ({len(w)} queries, {len(rq)} with a range term): cold {ms['cold']:.3f} ms, "
+        f"warm {ms['warm']:.3f} ms submit to drained")
+    log(f"3r classes of the warm window by route (dispatches, rows): {routes}; heavy-cache "
+        f"hits {int(ctr.get('heavy_cache_hits', 0))}, misses {int(ctr.get('heavy_cache_misses', 0))}; "
+        f"host rows {int(ctr.get('device_fallback_queries', 0))} ({len(range_host)} of range queries)")
+    log(f"3r launches over cold + warm: {counts}; K5 L from {min(lanes)} to {max(lanes)}")
+    assert plan.has_range[rq].all() and plan.has_range.sum() == len(rq)
+    assert not range_host and counts["merge_topk"] > 0 and routes.get("range+K5"), (range_host, counts)
+    profile_windows(lambda i: dix.query_batch_async(w, scorer, top_k=k), n=2)
+
+    # The range queries as f32 rows, against the f64 vectorized host path.
+    sub = [w[i] for i in rq]
+    dix.config = dataclasses.replace(ix.config, result_format="f32")
+    try:
+        s_f, sl_f, k_f = dix.query_batch_async(sub, scorer, top_k=k).get_arrays()
+    finally:
+        dix.config = ix.config
+    np.testing.assert_array_equal(sl_f, slots[rq])
+    t = time.perf_counter()
+    hits = total = 0
+    rel = 0.0
+    want_keys = []
+    for j, q in enumerate(sub):
+        want = scorer.vectorized_query(ix, q, TOK, top_k=k)
+        got = [(int(key), float(sc)) for key, sc, sl in zip(k_f[j], s_f[j], sl_f[j]) if sl >= 0]
+        assert len(got) == len(want), (q, len(got), len(want))
+        want_keys.append({r.key for r in want})
+        hits += sum(key in want_keys[-1] for key, _sc in got)
+        total += len(want)
+        for (_key, sc), r in zip(got, want):
+            rel = max(rel, abs(sc - r.score) / max(abs(r.score), 1e-30))
+    recall = hits / max(total, 1)
+    log(f"3r recall@{k} of the {len(sub)} range queries against the f64 vectorized host path: "
+        f"{recall!r}, max score rel err {rel:.3g} ({time.perf_counter() - t:.1f} s)")
+    assert recall >= 0.999 and rel <= RTOL + ATOL, (recall, rel)
+    t = time.perf_counter()
+    smallest = np.argsort(plan.nchunks[rq], kind="stable")[:16]
+    for j in smallest:
+        exact = {r.key for r in ix.query(sub[j], bm25.new(), TOK, [1.0], top_k=k)}
+        assert exact == want_keys[j], sub[j]
+    log(f"3r the 16 smallest range queries against Index.query: equal top-{k} keys "
+        f"({time.perf_counter() - t:.1f} s)")
+
+    # K5 against plain on every range class of the warm window, then on the
+    # heavy-cache classes of t0, t00 and t1 (each a class of its own).
+    aux = dix._aux_rec(scorer)
+    ones = torch.ones(1, device="cuda")
+    n = 0
+    k5 = [0.0, 0.0, 0.0, 0.0]
+    for _idxs, jobs_flat, nc, _nj, rng in packed[-1]:
+        if not rng:
+            continue
+        key, score = pdev.staged_lanes(
+            scorer, dix.rec, dix.field_avg, ones, torch.from_numpy(jobs_flat).cuda(), aux,
+            chunk=dix.CHUNK, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=True,
+        )
+        res = check_merge(key, score, min(k, nc * dix.CHUNK), f"3r class nc={nc}", quiet=True)
+        add_merge(errs, times, res)
+        k5 = [max(k5[0], res[0])] + [a + b for a, b in zip(k5[1:], res[1:4])]
+        n += 1
+    log(f"3r K5 on the window's {n} range classes: max_abs_err {k5[0]:.3g}, kernel "
+        f"{k5[1]:.4f} ms, plain {k5[2]:.4f} ms, bound {k5[3]:.4f} ms (bytes)")
+    for q in ("t0", "t00", "t1"):
+        plan_q, _fb = dix.plan_batch([q], TOK, scorer)
+        (_i, jobs_flat, nc, _nj, rng), = dix.pack_dispatches(1, plan_q)
+        key, score = pdev.staged_lanes(
+            scorer, dix.rec, dix.field_avg, ones, torch.from_numpy(jobs_flat).cuda(), aux,
+            chunk=dix.CHUNK, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=rng,
+        )
+        kq = dix.config.heavy_cache_top_k if plan_q.nchunks[0] >= dix.config.heavy_cache_min_chunks else k
+        err = check_merge(key, score, kq, f"3r {q}: range class nc={nc} L={nc * dix.CHUNK} k={kq}")[0]
+        errs["merge_topk"] = max(errs["merge_topk"], err)
+        del key, score
+    return counts["merge_topk"]
 
 
 # --------------------------------------------------------------------- #
@@ -652,13 +965,21 @@ def main():
 
     errs = phase_kernels(scorer)
     errs["fused_z2o"] = phase_z2o_kernels()
+    errs["merge_topk"] = phase_merge_kernels()
+    probe_launches, probe_times, probe_library_ms = phase_probe()
+    errs["probe_add"] = 0.0  # bit-equal, asserted
     launches, win_errs, times, ix, dix, windows = phase_main(scorer, card)
+    log(f"K5 launches on the main path: {launches['merge_topk']}")
+    launches["merge_topk"] += phase_ranges(ix, dix, windows[0], scorer, win_errs, times)
     phase_z2o_1m(ix, dix, windows[0])
     del ix, dix
     z2o_counts_, z2o_err, z2o_times = phase_z2o_main(card)
     launches["fused_z2o"] = z2o_counts_["fused_z2o"]
     win_errs["fused_z2o"] = z2o_err
     times["fused_z2o"] = z2o_times
+    launches["probe_add"] = probe_launches
+    win_errs["probe_add"] = 0.0
+    times["probe_add"] = probe_times
     record = []
     for key, (name, source, replaces) in KERNELS.items():
         ms, plain_ms, bound_ms, bound_by = times[key]
@@ -673,8 +994,9 @@ def main():
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes gather + segmented reduce + top-k
-            "library_ms": None,
+            # no single PyTorch call computes gather (or sort) + segmented
+            # reduce + top-k; the probe's is x + 1
+            "library_ms": probe_library_ms if key == "probe_add" else None,
         })
     assert "jax" not in sys.modules, "the port must not import jax"
     jax_pkg = [m for m in sys.modules if m == "probly_search_tpu" or m.startswith("probly_search_tpu.")]

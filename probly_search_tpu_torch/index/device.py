@@ -7,8 +7,17 @@ after another on the device:
 
   plan (host, numpy) -> pack job tables -> one H2D copy of the window
   per class: expand_chunks (torch) -> fused_query_topk (CUDA kernel;
-             phase "full", or phase "lanes" + torch merge for wide classes)
+             phase "full", or phase "lanes" + the merge kernel K5 for wide
+             classes); term-range classes and chunk widths that are not a
+             power of two: staged torch gather + score -> K5 (full sort)
   trim / pad / pack_result_rows -> one packed result -> one D2H copy
+
+Term-range jobs (word 1 bit 30): a query term with at least
+``IndexConfig.range_min_expansions`` expansions plans as one job per segment
+over its whole contiguous CSR range, not one job per expansion; word 2 then
+holds the query term's UTF-8 byte length, and the device reads each
+posting's idf and term byte length from the aux record array
+(``DeviceIndex._aux_rec``) to build the per-lane scale.
 
 Posting record layout (transposed int32[R, P + C]; R = 4 for one field,
 else 2 + 2F rounded up to a multiple of 8), as in the JAX package:
@@ -23,9 +32,8 @@ result formats and ``PendingBatch``.
 
 What the port does not do yet (each raises or is documented): block-max
 pruning (``prune_blocks`` is not honoured; pruning is exact, so results are
-unchanged), term-range jobs (expansion-heavy terms plan as per-expansion
-jobs), light classes, per-class dispatch, template save/load and prewarm,
-sharding and ``fetch_windows_jointly``.
+unchanged), light classes, per-class dispatch, template save/load and
+prewarm, sharding and ``fetch_windows_jointly``.
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ import torch
 
 from ..config import HostFallbackError
 from ..models.base import QueryResult
+from ..ops.fused_merge import merge_scores_topk_fused
 from ..ops.fused_query import fused_query_topk, gather_score
-from ..ops.merge import INVALID_KEY, merge_scores_topk, merge_scores_topk_presorted
+from ..ops.merge import INVALID_KEY
 from ..utils.metrics import metrics
 from ..utils.tokenizers import whitespace_tokenizer
 from .core import Index
@@ -48,14 +57,14 @@ from .segment import escape_terms_fixed, probe_terms_fixed
 
 _MAX_CHAR = "\U0010FFFF"  # prefix upper-bound sentinel
 
-# Job word1 layout: len(26) | qterm(4).
+# Job word1 layout: len(26) | qterm(4) | range(1).
 _LEN_BITS = 26
 _QT_BITS = 4
 _MAX_JOB_LEN = (1 << _LEN_BITS) - 1
 
 # Widest lane class the full-phase kernel takes: one row's key + score lanes
 # (8 B each) live in one block's shared memory.  Wider classes run the kernel
-# in phase "lanes" and merge in torch.  The value matches the JAX engine's,
+# in phase "lanes" and merge with K5.  The value matches the JAX engine's,
 # so the same classes take the same phase on both.
 _FUSED_MAX_LANES = 16384
 
@@ -85,7 +94,8 @@ class ScoreLanes:
     field_length: Any  # f32[B, NC, F, C] — per-field doc lengths
     field_avg: Any  # f32[F]
     fields_boost: Any  # f32[F]
-    scale: Any  # f32[B, NC, 1] — the job's idf * expansion boost, per chunk
+    scale: Any  # f32[B, NC, 1] — the job's idf * expansion boost per chunk,
+    # or f32[B, NC, C] per lane in a term-range class (see _range_scale)
     doc: Any  # int32[B, NC, C] — doc slot
     live: Any  # bool[B, NC, C] — posting is in the payload and its doc alive
     qterm: Any  # int32[B, NC] — dense query-term index per chunk
@@ -142,59 +152,108 @@ def expand_chunks(jobs, chunk: int, num_chunks: int):
     return (*tables, take(jobs[..., 2].contiguous().view(torch.float32)))
 
 
+def _range_scale(scorer, aux, jobs, take, c_start, c_scale, chunk: int):
+    """Per-lane scale f32[B, NC, C] of a term-range class.
+
+    Chunks of a range job (word 1 bit 30) take ``idf * device_range_boost(
+    term_len, qlen)`` per posting, with idf (f32 bits) and the posting's term
+    byte length from aux rows 0 and 1 and the query term's byte length from
+    word 2, converted to f32 (word 2 of a range job is an int, not scale
+    bits); chunks of per-expansion jobs keep their job's scale."""
+    c_range = (take(jobs[..., 1]) >> 30) & 1
+    c_qlenb = take(jobs[..., 2]).to(torch.float32)
+    pos = torch.arange(chunk, dtype=torch.int64, device=aux.device)
+    a = aux[:2, c_start.long()[..., None] + pos]  # [2, B, NC, C]
+    idf = a[0].contiguous().view(torch.float32)
+    boost = scorer.device_range_boost(a[1].to(torch.float32), c_qlenb[..., None])
+    return torch.where(c_range[..., None] > 0, idf * boost, c_scale[..., None])
+
+
 def _query_step(
-    scorer, rec, field_avg, fields_boost, jobs_flat,
+    scorer, rec, field_avg, fields_boost, jobs_flat, aux=None,
     *, chunk: int, k: int, qterm_bits: int, num_fields: int, num_chunks: int,
+    use_ranges: bool = False,
 ):
-    """One shape class: ``jobs_flat`` int32[B, NJ * 3] -> top-k per row."""
+    """One shape class: ``jobs_flat`` int32[B, NJ * 3] -> top-k per row.
+
+    Classes of power-of-two chunk width without range jobs run the fused
+    kernel (K1, or K3 + the merge kernel K5 over presorted runs).  Range
+    classes (``use_ranges``, which need ``aux``) and other chunk widths run
+    ``staged_lanes``, then K5 with a full sort: a range chunk spans many
+    terms, so its lanes are not doc-sorted."""
     C, NC = chunk, num_chunks
-    jobs = jobs_flat.reshape(jobs_flat.shape[0], -1, 3)
-    tables = expand_chunks(jobs, C, NC)
-    scalars = torch.cat([field_avg, fields_boost])
-    excl = bool(getattr(scorer, "device_excludes_nonpositive", False))
-    if C & (C - 1) == 0:
+    if not use_ranges and C & (C - 1) == 0:
+        jobs = jobs_flat.reshape(jobs_flat.shape[0], -1, 3)
+        tables = expand_chunks(jobs, C, NC)
+        scalars = torch.cat([field_avg, fields_boost])
         kw = dict(chunk=C, k=k, qterm_bits=qterm_bits, num_fields=num_fields)
         if NC * C <= _FUSED_MAX_LANES:
             return fused_query_topk(scorer, rec, *tables, scalars, **kw)
         score_l, key_l = fused_query_topk(scorer, rec, *tables, scalars, **kw, phase="lanes")
-        return merge_scores_topk_presorted(key_l, score_l, k, qterm_bits, C, excl)
-    # Chunk widths that are not a power of two: staged torch path with the
-    # general sort-based merge (the JAX engine runs XLA there).
-    c_start, c_skip, c_len, c_qterm, c_scale = tables
+        excl = bool(getattr(scorer, "device_excludes_nonpositive", False))
+        return merge_scores_topk_fused(
+            key_l, score_l, k, qterm_bits, run=C, excl=excl, max_seg=NC
+        )
+    key, score = staged_lanes(
+        scorer, rec, field_avg, fields_boost, jobs_flat, aux, chunk=C,
+        qterm_bits=qterm_bits, num_fields=num_fields, num_chunks=NC, use_ranges=use_ranges,
+    )
+    return merge_scores_topk_fused(key, score, k, qterm_bits)
+
+
+def staged_lanes(
+    scorer, rec, field_avg, fields_boost, jobs_flat, aux=None,
+    *, chunk: int, qterm_bits: int, num_fields: int, num_chunks: int, use_ranges: bool = False,
+):
+    """The staged torch gather + score of one class (the JAX engine's XLA
+    path): (key int32[B, L], score f32[B, L]), L = NC * C, with keys
+    ``doc << qterm_bits | qterm`` on live lanes (in the payload, the doc
+    alive, and for an excluding scorer a positive score) and INT32_MAX
+    elsewhere: the input of K5's full sort."""
+    C, NC = chunk, num_chunks
+    B = jobs_flat.shape[0]
+    jobs = jobs_flat.reshape(B, -1, 3)
+    take, c_start, c_skip, c_len, c_qterm = chunk_tables(jobs, C, NC)
+    c_scale = take(jobs[..., 2].contiguous().view(torch.float32))
+    scale = (
+        _range_scale(scorer, aux, jobs, take, c_start, c_scale, C)
+        if use_ranges
+        else c_scale[..., None]
+    )
     score, doc, _pos, in_pay, alive = gather_score(
-        scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars, C, num_fields
+        scorer, rec, c_start, c_skip, c_len, c_qterm, scale,
+        torch.cat([field_avg, fields_boost]), C, num_fields,
     )
     live = in_pay & alive
-    if excl:
+    if getattr(scorer, "device_excludes_nonpositive", False):
         live = live & (score > 0.0)
-    B = jobs.shape[0]
     key = torch.where(live, (doc << qterm_bits) | c_qterm[..., None], INVALID_KEY)
-    return merge_scores_topk(
-        key.to(torch.int32).reshape(B, NC * C), score.reshape(B, NC * C), k, qterm_bits
-    )
+    return key.to(torch.int32).reshape(B, NC * C), score.reshape(B, NC * C)
 
 
 def _window_step(
-    scorer, rec, field_avg, fields_boost, words_flat,
+    scorer, rec, field_avg, fields_boost, words_flat, aux=None,
     *, chunk: int, k: int, qterm_bits: int, num_fields: int, class_specs, fmt: str = "f32",
 ):
     """Run every shape class of a window and pack the results.
 
     ``words_flat`` int32[total] holds every class's [b_pad, NJ * 3] job
-    table back to back; ``class_specs`` = ((b_pad, b_out, nj, nc), ...).
-    Only the first ``b_out`` rows of a class are computed (rows are
-    independent; the rest are padding).  Returns the packed rows of every
-    class, concatenated (see ``pack_result_rows``)."""
+    table back to back; ``class_specs`` = ((b_pad, b_out, nj, nc, rng), ...),
+    ``rng`` marking a term-range class (``aux`` goes to those only).  Only
+    the first ``b_out`` rows of a class are computed (rows are independent;
+    the rest are padding).  Returns the packed rows of every class,
+    concatenated (see ``pack_result_rows``)."""
     outs = []
     off = 0
-    for b_pad, b_out, nj, nc in class_specs:
+    for b_pad, b_out, nj, nc, rng in class_specs:
         n = b_pad * nj * 3
         jobs_flat = words_flat[off : off + n].reshape(b_pad, nj * 3)[:b_out]
         off += n
         kk = min(k, nc * chunk)
         s, d = _query_step(
-            scorer, rec, field_avg, fields_boost, jobs_flat,
+            scorer, rec, field_avg, fields_boost, jobs_flat, aux if rng else None,
             chunk=chunk, k=kk, qterm_bits=qterm_bits, num_fields=num_fields, num_chunks=nc,
+            use_ranges=rng,
         )
         if kk < k:
             s = torch.nn.functional.pad(s, (0, k - kk), value=float("-inf"))
@@ -319,9 +378,12 @@ class PlannedJobs:
     """Flat job table for a batch, sorted by query."""
 
     jquery: np.ndarray  # int64[NJOBS]
-    words: np.ndarray  # int32[NJOBS, 3] — start, len|qterm, scale bits
+    # int32[NJOBS, 3] — start; len | qterm << 26 | range << 30; scale bits
+    # (a range job: the query term's UTF-8 byte length as an int)
+    words: np.ndarray
     nchunks: np.ndarray  # int64[B] — total chunks per query
     njobs: np.ndarray  # int64[B]
+    has_range: np.ndarray  # bool[B] — query carries a term-range job
 
 
 def _not_ported(what: str, item: str):
@@ -330,7 +392,7 @@ def _not_ported(what: str, item: str):
 
 def fetch_windows_jointly(batches) -> None:
     """Not ported: the port starts each window's D2H copy at submit time."""
-    raise _not_ported("fetch_windows_jointly", "item 1, M5 entry points")
+    raise _not_ported("fetch_windows_jointly", "M5 entry points")
 
 
 class DeviceIndex:
@@ -374,7 +436,7 @@ class DeviceIndex:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"DeviceIndex runs on cuda or cpu, not {self.device}")
         if index.config.light_chunk_size:
-            raise _not_ported("light_chunk_size (light classes)", "item 8, per-class dispatch")
+            raise _not_ported("light_chunk_size (light classes)", "per-class dispatch")
         index._flush_pending()
         self.version = index.version
         self._index = index
@@ -454,12 +516,58 @@ class DeviceIndex:
         # Per-tokenizer pooled zero-to-one query plans (ops/z2o_device.py).
         self._z2o_qplans: Dict[Any, Dict[str, Any]] = {}
         self._plan_lock = threading.RLock()
+        # Per-scorer aux record arrays of term-range jobs (_aux_rec), on the
+        # index's device.
+        self._aux_cache: Dict[Any, Any] = {}
         # Heavy-query result cache: (scorer key, job-table bytes, boosts) ->
         # (scores f32[Kc] | None, slots int32[Kc]); snapshot-static.
         self._heavy_cache: Dict[Any, Any] = {}
         # Frozen window-composition templates: (scorer key, k, fmt, window
         # size) -> [(nc, nj, row_capacity), ...].
         self._comp_templates: Dict[Any, list] = {}
+
+    def _aux_rec(self, scorer):
+        """Aux record array int32[4, P + C] of term-range jobs, built on the
+        host and uploaded once per scorer to the index's device:
+
+          aux[0]  f32 bits: the scorer's static per-term scale part
+                  (``device_term_static`` over the term's global live df,
+                  summed across segments; BM25: the df-clamped idf)
+          aux[1]  the posting's term UTF-8 byte length
+          aux[2:] zero pad
+
+        Bit for bit the JAX engine's array."""
+        key = _scorer_cache_key(scorer)
+        cached = self._aux_cache.get(key)
+        if cached is not None:
+            return cached
+        P = self.num_postings
+        aux = np.zeros((4, P + self.CHUNK), dtype=np.int32)
+        if P:
+            gterms = np.unique(np.concatenate(self.seg_terms))
+            gdf = np.zeros(len(gterms), dtype=np.float64)
+            for si, terms in enumerate(self.seg_terms):
+                if len(terms) == 0:
+                    continue
+                offs = self.seg_offsets[si]
+                cum = self.seg_live_cum[si]
+                gdf[np.searchsorted(gterms, terms)] += cum[offs[1:]] - cum[offs[:-1]]
+            static = np.asarray(scorer.device_term_static(gdf, self.n_docs), dtype=np.float32)
+            pos = 0
+            for si, terms in enumerate(self.seg_terms):
+                if len(terms) == 0:
+                    continue
+                reps = np.diff(self.seg_offsets[si]).astype(np.int64)
+                n = int(reps.sum())
+                gid = np.searchsorted(gterms, terms)
+                aux[0, pos : pos + n] = np.repeat(static[gid], reps).view(np.int32)
+                aux[1, pos : pos + n] = np.repeat(
+                    np.asarray(self.seg_term_lens[si], np.int32), reps
+                )
+                pos += n
+        arr = torch.from_numpy(aux).to(self.device)
+        self._aux_cache[key] = arr
+        return arr
 
     # ------------------------------------------------------------------ #
     # planning (host, vectorized)                                         #
@@ -470,7 +578,10 @@ class DeviceIndex:
         ``uniq_terms`` not pooled yet: its prefix expansion ranges per
         segment, the per-expansion df (grouped across segments; df == 0
         expansions dropped), the expansion boost and the premultiplied
-        per-job scale (the vectorized ``before_each``)."""
+        per-job scale (the vectorized ``before_each``).  A term with at least
+        ``range_min_expansions`` expansions (for a scorer with the range
+        halves) instead plans one term-range job per segment over its whole
+        contiguous CSR range."""
         pool = self._plan_pools.get(_scorer_cache_key(scorer))
         if pool is None:
             pool = {
@@ -483,6 +594,7 @@ class DeviceIndex:
                 "scale": np.zeros(0, dtype=np.float32),
                 "chunks": np.zeros(0, dtype=np.int64),  # per term
                 "over_cap": np.zeros(0, dtype=bool),  # per term
+                "range": np.zeros(0, dtype=bool),  # per job: term-range job
             }
             self._plan_pools[_scorer_cache_key(scorer)] = pool
         ids = pool["ids"]
@@ -496,17 +608,37 @@ class DeviceIndex:
         M = len(flat_terms)
         flat_upper = np.char.add(flat_terms, _MAX_CHAR)
 
-        # Per segment: prefix ranges -> one job per expansion, each carrying
-        # its live df (two lookups in the live-occurrence cumsum).  Term-range
-        # jobs are not ported (ROADMAP M6): every term plans per expansion.
-        job_parts = []
+        # Prefix ranges per segment, and term-range eligibility: a term with
+        # at least range_min_expansions expansions gets one job per segment
+        # over its whole contiguous CSR range instead of one per expansion.
+        thr = cfg.range_min_expansions
+        supports_ranges = (
+            thr > 0
+            and hasattr(scorer, "device_term_static")
+            and hasattr(scorer, "device_range_boost")
+        )
+        seg_ranges: List[Any] = []
+        nexp_total = np.zeros(M, dtype=np.int64)
         for si in range(len(self.segments)):
             terms = self.seg_terms[si]
             if len(terms) == 0:
+                seg_ranges.append(None)
                 continue
             lo = np.searchsorted(terms, flat_terms, side="left")
             hi = np.searchsorted(terms, flat_upper, side="left")
-            nexp = hi - lo
+            seg_ranges.append((lo, hi))
+            nexp_total += hi - lo
+        eligible = nexp_total >= thr if supports_ranges else np.zeros(M, dtype=bool)
+
+        # Per segment: one job per expansion of a non-eligible term, each
+        # carrying its live df (two lookups in the live-occurrence cumsum).
+        job_parts = []
+        for si in range(len(self.segments)):
+            terms = self.seg_terms[si]
+            if seg_ranges[si] is None:
+                continue
+            lo, hi = seg_ranges[si]
+            nexp = np.where(eligible, 0, hi - lo)
             if nexp.max(initial=0) == 0:
                 continue
             tid = np.repeat(lo, nexp) + _segment_arange(nexp)
@@ -578,10 +710,36 @@ class DeviceIndex:
             jstart = np.zeros(0, dtype=np.int64)
             jlen = np.zeros(0, dtype=np.int64)
             scale = np.zeros(0, dtype=np.float32)
+        jrange = np.zeros(len(jidx), dtype=bool)
+
+        # Term-range jobs of eligible terms: one per (term, segment) over the
+        # whole expansion range (the postings of terms [lo, hi) are
+        # contiguous in the CSR).  Word 2 carries the query term's byte
+        # length; the device builds the per-lane scale from the aux rows.
+        if eligible.any():
+            r_idx, r_start, r_len, r_qb = [], [], [], []
+            for si, rng_ in enumerate(seg_ranges):
+                if rng_ is None:
+                    continue
+                lo, hi = rng_
+                offs = self.seg_offsets[si]
+                for i in np.flatnonzero(eligible & (hi > lo)):
+                    s, e = int(offs[lo[i]]), int(offs[hi[i]])
+                    if e > s:
+                        r_idx.append(i)
+                        r_start.append(self.seg_base[si] + s)
+                        r_len.append(e - s)
+                        r_qb.append(int(flat_blen[i]))
+            if r_idx:
+                jidx = np.concatenate([jidx, np.asarray(r_idx, np.int64)])
+                jstart = np.concatenate([jstart, np.asarray(r_start, np.int64)])
+                jlen = np.concatenate([jlen, np.asarray(r_len, np.int64)])
+                scale = np.concatenate([scale, np.asarray(r_qb, np.int32).view(np.float32)])
+                jrange = np.concatenate([jrange, np.ones(len(r_idx), bool)])
 
         if len(jidx):
             # Split jobs longer than the packed-length capacity (the parts
-            # share the job's scale, so scores are unchanged).
+            # share the job's scale word, so scores are unchanged).
             if jlen.max(initial=0) > _MAX_JOB_LEN:
                 nsplit = (jlen + _MAX_JOB_LEN - 1) // _MAX_JOB_LEN
                 si_ = _segment_arange(nsplit)
@@ -590,16 +748,17 @@ class DeviceIndex:
                 jlen = np.minimum(jlen[sj] - si_ * _MAX_JOB_LEN, _MAX_JOB_LEN)
                 jidx = jidx[sj]
                 scale = scale[sj]
+                jrange = jrange[sj]
             # Over-cap terms contribute no pooled jobs (their queries fall
             # back to the host path).
             if over_cap.any():
                 keep3 = ~over_cap[jidx]
-                jidx, jstart, jlen, scale = (
-                    jidx[keep3], jstart[keep3], jlen[keep3], scale[keep3],
+                jidx, jstart, jlen, scale, jrange = (
+                    jidx[keep3], jstart[keep3], jlen[keep3], scale[keep3], jrange[keep3],
                 )
             order2 = np.argsort(jidx, kind="stable")
-            jidx, jstart, jlen, scale = (
-                jidx[order2], jstart[order2], jlen[order2], scale[order2],
+            jidx, jstart, jlen, scale, jrange = (
+                jidx[order2], jstart[order2], jlen[order2], scale[order2], jrange[order2],
             )
             nj_per_term = np.bincount(jidx, minlength=M)
         else:
@@ -624,6 +783,7 @@ class DeviceIndex:
         pool["scale"] = np.concatenate([pool["scale"], scale])
         pool["chunks"] = np.concatenate([pool["chunks"], term_chunks])
         pool["over_cap"] = np.concatenate([pool["over_cap"], over_cap])
+        pool["range"] = np.concatenate([pool["range"], jrange])
         # Rebuild the sorted (escaped) probe arrays; ids stay raw-keyed.
         keys_raw = list(ids.keys())
         esc = escape_terms_fixed(keys_raw)
@@ -664,6 +824,7 @@ class DeviceIndex:
                 words=qp["words"][rows],
                 nchunks=qp["nchunks"][qids],
                 njobs=nj,
+                has_range=qp["has_range"][qids],
             ), fallback
 
     def _qplan_pool(self, scorer, tokenizer):
@@ -679,6 +840,7 @@ class DeviceIndex:
                 "words": np.zeros((0, 3), dtype=np.int32),
                 "nchunks": np.zeros(0, dtype=np.int64),
                 "njobs": np.zeros(0, dtype=np.int64),
+                "has_range": np.zeros(0, dtype=bool),
                 "fallback": np.zeros(0, dtype=bool),
             }
             self._qplan_pools[key] = qp
@@ -695,8 +857,9 @@ class DeviceIndex:
             nj_m = np.zeros(M, dtype=np.int64)
             words_m = np.zeros((0, 3), dtype=np.int32)
             nch_m = np.zeros(M, dtype=np.int64)
+            rng_m = np.zeros(M, dtype=bool)
         else:
-            nj_m, words_m, nch_m = plan.njobs, plan.words, plan.nchunks
+            nj_m, words_m, nch_m, rng_m = plan.njobs, plan.words, plan.nchunks, plan.has_range
         base = len(qp["off"]) - 1
         for i, q in enumerate(miss):
             qp["ids"][q] = base + i
@@ -704,6 +867,7 @@ class DeviceIndex:
         qp["words"] = np.concatenate([qp["words"], words_m])
         qp["nchunks"] = np.concatenate([qp["nchunks"], nch_m])
         qp["njobs"] = np.concatenate([qp["njobs"], nj_m])
+        qp["has_range"] = np.concatenate([qp["has_range"], rng_m])
         qp["fallback"] = np.concatenate([qp["fallback"], fb_m])
 
     def _plan_batch_impl(self, queries: Sequence[str], tokenizer, scorer):
@@ -757,10 +921,12 @@ class DeviceIndex:
             return None, fallback
         jquery = np.repeat(flat_query, nj)
         jqterm = np.repeat(flat_qterm, nj)
+        jrange = pool["range"][rows]
         words = np.empty((len(rows), 3), dtype=np.int32)
         words[:, 0] = pool["start"][rows]
-        words[:, 1] = pool["len"][rows] | (jqterm << _LEN_BITS)
+        words[:, 1] = pool["len"][rows] | (jqterm << _LEN_BITS) | (jrange << 30)
         words[:, 2] = pool["scale"][rows].view(np.int32)
+        has_range = np.bincount(jquery, weights=jrange.astype(np.float64), minlength=B) > 0
         nchunks = np.bincount(
             flat_query, weights=pool["chunks"][tids].astype(np.float64), minlength=B
         ).astype(np.int64)
@@ -778,7 +944,8 @@ class DeviceIndex:
             if len(jquery) == 0:
                 return None, fallback
         return PlannedJobs(
-            jquery=jquery, words=words, nchunks=nchunks, njobs=njobs.astype(np.int64)
+            jquery=jquery, words=words, nchunks=nchunks, njobs=njobs.astype(np.int64),
+            has_range=has_range,
         ), fallback
 
     @staticmethod
@@ -820,28 +987,32 @@ class DeviceIndex:
     def pack_dispatches(self, n_queries: int, plan: PlannedJobs):
         """Bucket queries into shape classes and pack their job tables.
 
-        Returns [(query_indices, jobs_flat int32[B_pad, NJ*3], NC, NJ), ...];
-        each dispatch holds at most LANES_PER_DISPATCH lanes."""
+        Returns [(query_indices, jobs_flat int32[B_pad, NJ*3], NC, NJ, rng),
+        ...]; each dispatch holds at most LANES_PER_DISPATCH lanes.  Queries
+        that carry a term-range job form classes of their own (``rng``; class
+        id bit 0), of at most 2 rows padded to the real row count: their
+        staged gather holds [B, NC, C] record and aux lanes at once."""
         C = self.CHUNK
         nc_bucket = _bucket_vec(plan.nchunks, self.nc_buckets, self.nc_min)
         alive = plan.njobs > 0
-        class_of_q = np.where(alive, nc_bucket, -1)
+        class_of_q = np.where(alive, nc_bucket * 2 + plan.has_range.astype(np.int64), -1)
         order = np.argsort(class_of_q, kind="stable")
         sorted_cls = class_of_q[order]
         jpos = self._job_rows(plan, n_queries)
 
         out = []
-        for nc in np.unique(class_of_q[alive]) if alive.any() else []:
-            nc = int(nc)
-            members = order[sorted_cls == nc]
+        for cls in np.unique(class_of_q[alive]) if alive.any() else []:
+            cls = int(cls)
+            nc, rng = cls // 2, bool(cls & 1)
+            members = order[sorted_cls == cls]
             nj = _bucket(int(plan.njobs[members].max()), self.NJ_BUCKETS, 4)
             b_cap = max(1, int(self.LANES_PER_DISPATCH // (nc * C)))
-            # Huge classes (usually single queries) pad to their real row
-            # count, not to 8 rows.
-            min_pad = 1 if nc * C > (1 << 21) else 8
-            if self.config.pow2_row_split:
-                spans = self._pow2_spans(len(members), b_cap, min_pad)
-            else:
+            # Range classes and huge classes (usually single queries) pad to
+            # their real row count, not to 8 rows.
+            min_pad = 1 if (rng or nc * C > (1 << 21)) else 8
+            if rng:
+                b_cap = min(b_cap, 2)
+            if rng or not self.config.pow2_row_split:
                 spans = [
                     (m, max(min_pad, 1 << (m - 1).bit_length()))
                     for m in (
@@ -849,11 +1020,13 @@ class DeviceIndex:
                         for s in range(0, len(members), b_cap)
                     )
                 ]
+            else:
+                spans = self._pow2_spans(len(members), b_cap, min_pad)
             s = 0
             for B, B_pad in spans:
                 idxs = members[s : s + B]
                 s += B
-                out.append((idxs, self._fill_jobs(plan, jpos, idxs, B_pad, nj), nc, nj))
+                out.append((idxs, self._fill_jobs(plan, jpos, idxs, B_pad, nj), nc, nj, rng))
         return out
 
     def _pack_dispatches_template(self, n_queries: int, plan: PlannedJobs, tkey):
@@ -945,8 +1118,8 @@ class DeviceIndex:
         dispatches, class_specs = [], []
         for (nc, nj, cap), blist in zip(entries, buckets):
             idxs = np.concatenate(blist) if blist else np.empty(0, dtype=np.int64)
-            dispatches.append((idxs, self._fill_jobs(plan, jpos, idxs, cap, nj), nc, nj))
-            class_specs.append((cap, cap, nj, nc))
+            dispatches.append((idxs, self._fill_jobs(plan, jpos, idxs, cap, nj), nc, nj, False))
+            class_specs.append((cap, cap, nj, nc, False))
         return dispatches, tuple(class_specs)
 
     # ------------------------------------------------------------------ #
@@ -987,18 +1160,18 @@ class DeviceIndex:
     def _check_supported(self, scorer) -> None:
         cfg = self.config
         if cfg.per_class_dispatch:
-            raise _not_ported("per_class_dispatch", "item 8, per-class dispatch")
+            raise _not_ported("per_class_dispatch", "per-class dispatch")
         if not cfg.single_dispatch_windows:
-            raise _not_ported("single_dispatch_windows=False", "item 8, per-class dispatch")
+            raise _not_ported("single_dispatch_windows=False", "per-class dispatch")
 
     def save_templates(self, path: str) -> int:
-        raise _not_ported("save_templates", "item 4, M8")
+        raise _not_ported("save_templates", "M8, templates and prewarm")
 
     def load_templates(self, path: str) -> int:
-        raise _not_ported("load_templates", "item 4, M8")
+        raise _not_ported("load_templates", "M8, templates and prewarm")
 
     def prewarm(self, scorer, fields_boost=None) -> int:
-        raise _not_ported("prewarm", "item 4, M8")
+        raise _not_ported("prewarm", "M8, templates and prewarm")
 
     def _upload(self, words: np.ndarray):
         """One H2D copy of the window's int32 words, through pinned memory
@@ -1108,6 +1281,7 @@ class DeviceIndex:
                         words=plan.words[keep],
                         nchunks=nchunks2,
                         njobs=np.bincount(jq2, minlength=len(queries)),
+                        has_range=plan.has_range,
                     )
                     if len(jq2)
                     else None
@@ -1121,10 +1295,12 @@ class DeviceIndex:
         with metrics.timer("query/pack"):
             if (
                 cfg.template_compositions
+                and not bool(plan.has_range.any())
                 and not bool((plan.nchunks > 2048).any())
             ):
-                # Windows with a huge class (nc > 2048) keep the composed
-                # path: their row pads track the real query count.
+                # Windows with a term-range query or a huge class (nc > 2048)
+                # keep the composed path: their row pads track the real
+                # query count.
                 tkey = (_scorer_cache_key(scorer), k, fmt, len(queries))
                 dispatches, tpl_specs = self._pack_dispatches_template(
                     len(queries), plan, tkey
@@ -1141,7 +1317,7 @@ class DeviceIndex:
             dispatches.sort(key=lambda d: (d[2], d[3], d[1].shape[0]))
             # Output rows per class: the real query count rounded up to 256.
             class_specs = tuple(
-                (d[1].shape[0], min(d[1].shape[0], -(-len(d[0]) // 256) * 256), d[3], d[2])
+                (d[1].shape[0], min(d[1].shape[0], -(-len(d[0]) // 256) * 256), d[3], d[2], d[4])
                 for d in dispatches
             )
         else:
@@ -1155,6 +1331,7 @@ class DeviceIndex:
             )
             words_flat = self._upload(words_np)
         n_words = len(words_np) - F
+        aux = self._aux_rec(scorer) if any(spec[4] for spec in class_specs) else None
         with metrics.timer("query/dispatch"):
             packed = _window_step(
                 scorer,
@@ -1162,6 +1339,7 @@ class DeviceIndex:
                 self.field_avg,
                 words_flat[n_words:].view(torch.float32),
                 words_flat[:n_words],
+                aux,
                 chunk=self.CHUNK,
                 k=k,
                 qterm_bits=self._qterm_bits,

@@ -2,8 +2,10 @@
 
 The torch port's copy of ``probly_search_tpu/models/bm25.py``: the host
 halves (``before_each``, ``score``, ``device_term_scale``,
-``device_cache_key``, the vectorized host query) are the JAX scorer's,
-copied; the vectorized per-lane score (``device_score_lanes``) is torch.  On
+``device_cache_key``, ``device_term_static``, the vectorized host query) are
+the JAX scorer's, copied; the vectorized per-lane score
+(``device_score_lanes``) and the range-job expansion boost
+(``device_range_boost``) are torch.  On
 a CUDA device the fused kernel (``ops/fused_query.py``) computes the same
 formula from ``bm25k1`` / ``bm25b``.
 
@@ -155,11 +157,37 @@ class BM25(BaseScoreCalculator):
         [B, NC, F, C] with the posting lane dim C minor); f32[B, NC, C]."""
         return bm25_score_lanes(lanes, self.bm25k1, self.bm25b)
 
+    def device_term_static(self, df, n_docs):
+        """Per-term static part of the scale (host f64 -> f32): the
+        df-clamped Lucene idf, written per posting into the aux record array
+        that term-range jobs read on the device (``DeviceIndex._aux_rec``)."""
+        import numpy as np
+
+        freq = np.minimum(n_docs, df.astype(np.float64))
+        idf = np.log(1.0 + (n_docs - freq + 0.5) / (freq + 0.5))
+        return idf.astype(np.float32)
+
+    # ln(1+x)/x on [0, 1] as a power series (degree-9 Chebyshev fit), the
+    # JAX scorer's coefficients in the same order: the range boost is this
+    # polynomial, not log1p, so both engines differ only by f32 rounding.
+    _LOG1P_RATIO_COEFFS = (
+        0.9999999869915193, -0.4999985092774396, 0.33329100870038264,
+        -0.2494782132315905, 0.19651539184497904, -0.15251556640920744,
+        0.10533368733399628, -0.05643612449615146, 0.019649622919934922,
+        -0.003214113138228588,
+    )
+
     def device_range_boost(self, term_len, qlen):
-        raise NotImplementedError(
-            "term-range jobs are not ported yet (ROADMAP Queue 1, M6); the "
-            "port plans expansion-heavy terms as per-expansion jobs"
-        )
+        """Expansion boost of range-job lanes (bm25.rs:44-55) in f32: 1.0
+        where the byte lengths are equal (within a prefix range that is the
+        exact term), else ``x * P(x)`` with ``x = 1 / (1 + term_len - qlen)``,
+        a Horner pass over ``_LOG1P_RATIO_COEFFS``.  Plain torch ops (IEEE
+        division, no fused multiply-add), as in the JAX scorer."""
+        x = 1.0 / (1.0 + torch.clamp(term_len - qlen, min=0.0))
+        acc = torch.full_like(x, self._LOG1P_RATIO_COEFFS[-1])
+        for c in self._LOG1P_RATIO_COEFFS[-2::-1]:
+            acc = acc * x + c
+        return torch.where(term_len == qlen, 1.0, x * acc)
 
 
 def new(bm25k1: float = 1.2, bm25b: float = 0.75) -> BM25:

@@ -76,6 +76,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_z2o.restype = i
     lib.fused_z2o_smem_bytes.argtypes = [i, i, i]
     lib.fused_z2o_smem_bytes.restype = ctypes.c_longlong
+    lib.merge_topk.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p, p]
+    lib.merge_topk.restype = i
+    lib.merge_topk_workspace.argtypes = [i, i, i]
+    lib.merge_topk_workspace.restype = ctypes.c_longlong
+    lib.probe_add.argtypes = [i, p, p, i, p]
+    lib.probe_add.restype = i
     return lib
 
 

@@ -35,12 +35,14 @@ def _kernel_scores(scorer) -> bool:
 
 
 def gather_score(
-    scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars, chunk: int, num_fields: int
+    scorer, rec, c_start, c_skip, c_len, c_qterm, scale, scalars, chunk: int, num_fields: int
 ):
     """Staged gather + score of every chunk lane, in plain torch.
 
-    Returns (score f32[B, NC, C], doc int32[B, NC, C], pos int32[1, 1, C],
-    in_pay bool[B, NC, C], alive bool[B, NC, C])."""
+    ``scale`` is f32[B, NC, 1] (the job's scale per chunk) or f32[B, NC, C]
+    (per lane, term-range classes).  Returns (score f32[B, NC, C], doc
+    int32[B, NC, C], pos int32[1, 1, C], in_pay bool[B, NC, C], alive
+    bool[B, NC, C])."""
     from ..index.device import ScoreLanes
 
     C, F = chunk, num_fields
@@ -57,7 +59,7 @@ def gather_score(
         field_length=flen,
         field_avg=scalars[:F],
         fields_boost=scalars[F : 2 * F],
-        scale=c_scale[..., None],
+        scale=scale,
         doc=doc,
         live=in_pay & alive,
         qterm=c_qterm,
@@ -77,7 +79,8 @@ def fused_query_topk_reference(
     INVALID_KEY trailing pads, -inf scores on latently dead docs."""
     B, NC = c_start.shape
     score, doc, pos, in_pay, alive = gather_score(
-        scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars, chunk, num_fields
+        scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale[..., None], scalars, chunk,
+        num_fields,
     )
     excl = bool(getattr(scorer, "device_excludes_nonpositive", False))
     if excl:

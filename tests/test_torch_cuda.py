@@ -17,11 +17,13 @@ import torch
 
 from probly_search_tpu_torch import bm25, zero_to_one
 from probly_search_tpu_torch.index import device as pdev
+from probly_search_tpu_torch.ops import fused_merge as fm
 from probly_search_tpu_torch.ops import fused_query as fq
 from probly_search_tpu_torch.ops import fused_z2o as fz
+from probly_search_tpu_torch.ops import launch_probe as lp
 from probly_search_tpu_torch.testing import assert_topk_agree
 
-from .torch_util import QB, make_rec, make_tables, make_z2o_tables, to_torch
+from .torch_util import QB, make_rec, make_tables, make_z2o_tables, merge_rows, to_torch
 
 
 @pytest.mark.cuda
@@ -162,3 +164,75 @@ def test_z2o_serving_on_cuda_matches_cpu():
         [int(k) for k, sl in zip(keys, slots) if sl >= 0] for keys, slots in zip(got[2][:20], got[1][:20])
     ]
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,n_runs,run,excl,k",
+    [
+        (2, 3, 0, False, 10),  # a range class: L = 3072, one tile
+        (1, 20, 0, False, 128),  # L = 20,480 > one tile: global stages
+        (1, 256, 0, False, 128),  # L = 2^18: several top-k passes
+        (24, 24, 1024, True, 10),  # the lanes merge after K3
+        (4, 32, 1024, False, 128),
+    ],
+)
+def test_merge_kernel_matches_plain_on_cuda(B, n_runs, run, excl, k):
+    """K5 against its plain version; repeat runs bit-equal."""
+    _cuda()
+    rng = np.random.default_rng(B * 1000 + n_runs)
+    key, val = merge_rows(rng, B, n_runs, 1024, excl, presorted=run > 0, n_docs=4096)
+    kt, vt = to_torch([key, val], "cuda")
+    before = fm.launches["merge_topk"]
+    ks, kd = fm.merge_scores_topk_fused(kt, vt, k, QB, run=run, excl=excl, max_seg=n_runs)
+    ks2, kd2 = fm.merge_scores_topk_fused(kt, vt, k, QB, run=run, excl=excl, max_seg=n_runs)
+    torch.cuda.synchronize()
+    assert fm.launches["merge_topk"] == before + 2
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    ps, pd = fm.merge_scores_topk_fused_reference(kt, vt, k, QB, run=run, excl=excl)
+    assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
+    assert (kd >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 16])
+def test_probe_matches_plain_on_cuda(n):
+    """P1 against ``x + 1``, bit-equal, one launch per call."""
+    _cuda()
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(lp.SHAPE).astype(np.float32)).cuda()
+    before = lp.launches["probe_add"]
+    got, want = x, x
+    for _ in range(n):
+        got = lp.probe_add(got)
+        want = lp.probe_add_reference(want)
+    torch.cuda.synchronize()
+    assert lp.launches["probe_add"] == before + n
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_range_window_on_cuda_matches_cpu():
+    """A window with term-range queries (range_min_expansions 4, chunk 128,
+    two segments, a latent delete) on the card against the CPU: the range
+    classes run the staged torch step and K5."""
+    _cuda()
+    import random
+
+    from probly_search_tpu_torch import Index, IndexConfig
+
+    rng = random.Random(6)
+    vocab = ["aa" + "".join(rng.choice("bcde") for _ in range(j % 3 + 1)) for j in range(30)]
+    vocab += ["zz%d" % j for j in range(10)]
+    ix = Index(1, config=IndexConfig(chunk_size=128, range_min_expansions=4))
+    for s in range(2):
+        texts = [" ".join(rng.choice(vocab) for _ in range(rng.randint(2, 6))) for _ in range(300)]
+        ix.add_documents_columnar(list(range(300 * s, 300 * (s + 1))), [texts])
+        ix._flush_pending()
+    ix.remove_document(17)
+    window = ["aa", "a", "aab zz1", "zz2", "aa aab zz3", "zz4 zz5", "", "qq"] * 3
+    before = fm.launches["merge_topk"]
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    got = dix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    assert fm.launches["merge_topk"] > before
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    want = cpu.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], want[0], want[1])

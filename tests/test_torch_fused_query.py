@@ -26,6 +26,7 @@ from probly_search_tpu import bm25 as jbm25
 from probly_search_tpu.ops import merge as jmerge
 from probly_search_tpu_torch import bm25
 from probly_search_tpu_torch.index import device as pdev
+from probly_search_tpu_torch.ops import fused_merge as fm
 from probly_search_tpu_torch.ops import fused_query as fq
 from probly_search_tpu_torch.ops import merge as pmerge
 from probly_search_tpu_torch.testing import assert_topk_agree
@@ -150,7 +151,8 @@ def test_merge_general_matches_jax(L):
     keys = keys.astype(np.int32)
     scores = rng.uniform(0, 5, (5, L)).astype(np.float32)
     js, jd = _jax_general(jnp.asarray(keys), jnp.asarray(scores), 10, QB)
-    ps, pd = pmerge.merge_scores_topk(torch.from_numpy(keys), torch.from_numpy(scores), 10, QB)
+    # the general merge is K5's plain version with a full sort (run = 0)
+    ps, pd = fm.merge_scores_topk_fused_reference(torch.from_numpy(keys), torch.from_numpy(scores), 10, QB)
     assert_topk_agree(ps.numpy(), pd.numpy(), np.asarray(js), np.asarray(jd))
 
 

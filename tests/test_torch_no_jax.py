@@ -2,8 +2,9 @@
 package ``probly_search_tpu``.
 
 The test process itself imports JAX (conftest.py), so the proof runs in a
-fresh interpreter where ``import jax`` fails: it imports the port, serves a
-50-document slice on the CPU with BM25 and with zero-to-one, checks that
+fresh interpreter where ``import jax`` fails: it imports the port (the
+launch probe and the profiling utilities too), serves a 50-document slice
+on the CPU with BM25 and with zero-to-one, checks that
 DeviceIndex refuses a CUDA device that is not there, and ends with no module
 of the JAX package loaded.  A static check finds no import of the JAX
 package in the port or in ``chip_smoke.py``.
@@ -37,6 +38,10 @@ assert [int(k) for k in keys[0]] == oracle, (keys[0], oracle)
 z2o = ix.query_batch(["w3 common", "w5 w5"], pt.zero_to_one.new(), top_k=5)
 z2o_oracle = ix.query("w3 common", pt.zero_to_one.new(), pt.whitespace_tokenizer, [1.0])[:5]
 assert [r.key for r in z2o[0]] == [r.key for r in z2o_oracle] and z2o[1], z2o
+
+import probly_search_tpu_torch.ops.launch_probe as lp
+import probly_search_tpu_torch.utils.profiling  # noqa: F401
+assert torch.equal(lp.probe_add(torch.zeros(3)), torch.ones(3))
 
 torch.cuda.is_available = lambda: False
 try:

@@ -88,7 +88,7 @@ def test_plan_batch(engines, part):
     queries = engines[1][part]
     pp, pfb, jp, jfb = _plans(engines, queries)
     assert pfb == jfb
-    for name in ("jquery", "words", "nchunks", "njobs"):
+    for name in ("jquery", "words", "nchunks", "njobs", "has_range"):
         np.testing.assert_array_equal(getattr(pp, name), getattr(jp, name), err_msg=name)
 
 
@@ -114,10 +114,10 @@ def test_pack_dispatches(engines, monkeypatch, pow2_row_split):
     assert len(pd) == len(jd) > 1
     split = len({d[2] for d in pd}) < len(pd)  # some class spans two dispatches
     assert split == pow2_row_split
-    for (pi, pj, pnc, pnj), (ji, jj, jnc, jnj, jrng, jcw) in zip(pd, jd):
+    for (pi, pj, pnc, pnj, prng), (ji, jj, jnc, jnj, jrng, jcw) in zip(pd, jd):
         np.testing.assert_array_equal(pi, ji)
         np.testing.assert_array_equal(pj, jj)
-        assert (pnc, pnj, False, p.CHUNK) == (jnc, jnj, jrng, jcw)
+        assert (pnc, pnj, prng, p.CHUNK) == (jnc, jnj, jrng, jcw)
 
 
 def test_pack_dispatches_template_refreeze(engines):
@@ -129,12 +129,12 @@ def test_pack_dispatches_template_refreeze(engines):
         pp, _pfb, jp, _jfb = _plans(engines, window)
         pd, pspecs = p._pack_dispatches_template(len(window), pp, ("t", 10))
         jd, jspecs = j._pack_dispatches_template(len(window), jp, ("t", 10))
-        assert [s[:4] for s in jspecs] == list(pspecs)
+        assert [s[:5] for s in jspecs] == list(pspecs)
         assert all(s[4:] == (False, p.CHUNK) for s in jspecs)
         assert [e[:3] for e in j._comp_templates[("t", 10)]] == p._comp_templates[("t", 10)]
-        for (pi, pj, pnc, pnj), (ji, jj, jnc, jnj, *_r) in zip(pd, jd):
+        for (pi, pj, pnc, pnj, prng), (ji, jj, jnc, jnj, jrng, *_r) in zip(pd, jd):
             np.testing.assert_array_equal(pi, ji)
             np.testing.assert_array_equal(pj, jj)
-            assert (pnc, pnj) == (jnc, jnj)
+            assert (pnc, pnj, prng) == (jnc, jnj, jrng)
         frozen.append(list(p._comp_templates[("t", 10)]))
     assert frozen[0] != frozen[1] == frozen[2]

@@ -65,3 +65,38 @@ def make_z2o_tables(rng, starts, lens, B, NC, C=128, scores=(1.0, 0.75, 2.0 / 3.
     c_score = rng.choice(np.asarray(scores, np.float32), (B, NC))
     qlen = rng.integers(1, 5, B).astype(np.float32)
     return [c_start, c_skip, c_len, c_qterm, c_score, score_ranks(c_score), qlen]
+
+
+def merge_rows(rng, rows, n_runs, run, excl, presorted, n_docs=200):
+    """Rows of the standalone merge, key int32 / score f32 [rows, n_runs * run].
+
+    ``presorted``: ascending runs of ``run`` lanes with -1 leading pads and
+    INT32_MAX trailing pads (the phase "lanes" layout), 10% of the docs dead
+    (-inf on every lane of the doc).  Else unsorted lanes with INT32_MAX pads
+    only (a range class).  Keys repeat (one (doc, qterm) key per expansion
+    of a query term), and scores come from a few values, so that equal doc
+    totals happen; ``excl`` clamps them to >= 0 as the BM25 caller does."""
+    L = n_runs * run
+    inv = np.int32(2**31 - 1)
+    key = np.full((rows, L), inv, np.int32)
+    val = rng.choice(np.array([0.5, 1.0, 1.5, 2.25, -0.75], np.float32), (rows, L))
+    if excl:
+        val = np.maximum(val, 0.0).astype(np.float32)
+    for r in range(rows):
+        if not presorted:
+            docs = rng.integers(0, n_docs // 2, L)
+            keys = (docs << QB) | rng.integers(0, 4, L)
+            key[r] = np.where(rng.random(L) < 0.15, inv, keys)
+            continue
+        for c in range(n_runs):
+            skip = int(rng.integers(0, run // 4 + 1))
+            n = int(rng.integers(0, run - skip + 1))
+            docs = np.sort(rng.choice(n_docs, size=n, replace=False))
+            lo = c * run
+            key[r, lo : lo + skip] = -1
+            key[r, lo + skip : lo + skip + n] = (docs << QB) | int(rng.integers(0, 3))
+        dead = rng.choice(n_docs, size=n_docs // 10, replace=False)
+        live = (key[r] >= 0) & (key[r] != inv)
+        val[r, live & np.isin(key[r] >> QB, dead)] = -np.inf
+        val[r, ~live] = 0.0
+    return key, val
