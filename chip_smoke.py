@@ -8,15 +8,21 @@ Phases (any failure raises, so the exit code is not 0):
      and the kernel build from probly_search_tpu_torch/csrc;
   2. each BM25 kernel against its plain torch version on seeded chunk
      tables (C = 1024, B = 1024; phase "full" at NC 2..16, phase "lanes" at
-     NC 24 and 32; k 10 and 128), with bit-equal repeat runs and CUDA-event
-     times;
+     NC 24 and 32; k 10 and 128; phase "full" also at k 5,000 and k = L,
+     past its shared-memory top-k buffer), with bit-equal repeat runs and
+     CUDA-event times;
   2z. the zero-to-one kernel (K4) the same way: C = 1024, B = 1024,
      NC 2, 3, 4, 6, 8, F 1, 2, 4, k 10 and 128;
   2m. the standalone merge kernel (K5) against its plain version on seeded
      rows: run 0 (full sort) at B 1 and 2, L 2,048 .. 2^23 (3,072, 24,576
      and 3 * 2^20 not powers of two); run 1,024 at B 24, L 24,576 and
      32,768, excl on and off; k 10 and 128; duplicate keys, pads, dead docs
-     and equal totals;
+     and equal totals; then the edges of K5's two paths (L = 1, the block
+     cap and one past it, 32,768 and one past it, all totals equal, all
+     pads, one live lane, k above the live docs, keys near 2^31 - 1 with
+     key_bits 31); each shape's path, and on the edges and the long rows
+     the kernel launches per call (a CUDA graph capture of one call),
+     asserted equal to the path's count;
   2p. the launch probe (P1) against x + 1, bit-equal, over chains of 1, 4
      and 16 launches: per-launch time from the host clock and CUDA events;
   3. the BM25 main path at real size: top-10 over the 1,000,000-doc bench
@@ -30,10 +36,12 @@ Phases (any failure raises, so the exit code is not 0):
      query's first term cut to its first four characters (a prefix of 100
      terms) and the last three queries replaced by t0, t00 and t1, served
      cold, then warm; classes by route, K5 launches, ms submit to drained;
-     recall@10 of every range query against the f64 vectorized BM25 host
-     path, the 16 smallest also against Index.query, 0 host rows; K5 held
+     the distribution of K5's L over the range classes, K5 calls by path and
+     K5's kernel launches per warm window (torch.profiler); recall@10 of
+     every range query against the f64 vectorized BM25 host path, the 16
+     smallest also against Index.query, 0 host rows; K5 held
      against plain on every range class and on the heavy-cache classes of
-     t0, t00 and t1;
+     t0, t00 and t1 (with their kernel launches per call, asserted);
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route, and the rows held against the f64 oracle on 64 queries;
   4. the zero-to-one main path at the repo's zero_to_one_50k configuration
@@ -75,7 +83,9 @@ from probly_search_tpu_torch.ops import fused_query as fq  # noqa: E402
 from probly_search_tpu_torch.ops import fused_z2o as fz  # noqa: E402
 from probly_search_tpu_torch.ops import launch_probe as lp  # noqa: E402
 from probly_search_tpu_torch.ops import z2o_device as pz  # noqa: E402
+from probly_search_tpu_torch.ops.fused_query import padded_rows  # noqa: E402
 from probly_search_tpu_torch.testing import ATOL, RTOL, assert_topk_agree  # noqa: E402
+from tests.torch_util import merge_edge_rows  # noqa: E402
 
 SEED = 0
 C = 1024
@@ -87,8 +97,20 @@ Z2O_NC = (2, 3, 4, 6, 8)
 Z2O_F = (1, 2, 4)
 MERGE_L_FULL = (2048, 3072, 16384, 24576, 1 << 20, 3 << 20, 1 << 23)
 MERGE_L_RUNS = (24576, 32768)
+# K5's edge shapes (kind of row as tests/torch_util.merge_edge_rows, B, L,
+# key_bits); "block" is the block path's cap.
+MERGE_EDGES = (
+    ("random", 1, 1, 31), ("random", 2, "block", 31), ("random", 2, "block+1", 31),
+    ("random", 1, 32768, 31), ("random", 1, 32769, 24),
+    ("ties", 2, 24576, 31), ("ties", 1, 1 << 20, 24), ("pads", 2, 3072, 31),
+    ("pads", 1, 1 << 20, 31), ("one", 2, 65536, 31), ("few", 1, 1 << 20, 24),
+    ("high", 2, 16384, 31), ("high", 1, 32768, 31), ("high", 1, 1 << 20, 31),
+)
+# K1 past its shared-memory top-k buffer (fused_query.MAX_K): (NC, k).
+FULL_LARGE_K = ((8, 5000), (16, 16384))
 PROBE_CHAINS = (1, 4, 16)
 INT32_MAX = 2**31 - 1
+SYN_KEY_BITS = fm.key_bits_for(20_000, QB)  # synthetic_rec's docs
 N_DOCS = 1_000_000
 WINDOW = 16384
 TOK = pdev.whitespace_tokenizer
@@ -221,8 +243,8 @@ def bound(payload_lanes: int, rows_read: int, table_bytes: int, out_bytes: int, 
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_full(scorer, rec, tables, scalars, k, label):
-    kw = dict(chunk=C, k=k, qterm_bits=QB, num_fields=1)
+def check_full(scorer, rec, tables, scalars, k, label, key_bits=31):
+    kw = dict(chunk=C, k=k, qterm_bits=QB, num_fields=1, key_bits=key_bits)
     ks, kd = fq.fused_query_topk(scorer, rec, *tables, scalars, **kw)
     ks2, kd2 = fq.fused_query_topk(scorer, rec, *tables, scalars, **kw)
     assert torch.equal(ks, ks2) and torch.equal(kd, kd2), f"{label}: repeat runs differ"
@@ -233,7 +255,7 @@ def check_full(scorer, rec, tables, scalars, k, label):
     return err, ms, plain_ms
 
 
-def check_lanes(scorer, rec, tables, scalars, k, label):
+def check_lanes(scorer, rec, tables, scalars, k, label, key_bits=31):
     kw = dict(chunk=C, k=k, qterm_bits=QB, num_fields=1, phase="lanes")
     ls, lk = fq.fused_query_topk(scorer, rec, *tables, scalars, **kw)
     ls2, lk2 = fq.fused_query_topk(scorer, rec, *tables, scalars, **kw)
@@ -245,7 +267,8 @@ def check_lanes(scorer, rec, tables, scalars, k, label):
     torch.testing.assert_close(ls[fin], ps[fin], rtol=RTOL, atol=ATOL)
     err = float((ls[fin] - ps[fin]).abs().max()) if bool(fin.any()) else 0.0
     # merged top-k through K5, against the plain full phase
-    ms_, md_ = fm.merge_scores_topk_fused(lk, ls, k, QB, run=C, excl=True, max_seg=lk.shape[1] // C)
+    ms_, md_ = fm.merge_scores_topk_fused(lk, ls, k, QB, run=C, excl=True, max_seg=lk.shape[1] // C,
+                                          key_bits=key_bits)
     fs, fd = fq.fused_query_topk_reference(scorer, rec, *tables, scalars, **{**kw, "phase": "full"})
     err = max(err, assert_topk_agree(ms_.cpu(), md_.cpu(), fs.cpu(), fd.cpu()))
     ms = cuda_ms(lambda: fq.fused_query_topk(scorer, rec, *tables, scalars, **kw))
@@ -271,23 +294,75 @@ def merge_bound(key, k):
     return bound(0, 0, B * L * 8, B * k * 8, B * (L * max(1, (L - 1).bit_length()) + 2 * L))
 
 
-def check_merge(key, score, k, label, run=0, excl=False, max_seg=0, quiet=False):
+K5_KERNELS = ("merge_block_kernel", "radix_")
+
+
+def kernels_per_call(fn):
+    """Kernels one call of ``fn`` launches: the call captured into a CUDA
+    graph, whose kernel nodes the driver counts (cuGraphGetNodes,
+    cuGraphNodeGetType).  torch.profiler miscounted these launches, which
+    come from the port's own library: 17 of a radix call's 19 kernels on
+    t0, and once none in a session."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    g.reset()
+    return kernels
+
+
+def merge_path(key, k):
+    B, L = key.shape
+    return fm.merge_plan(B, L, k, fm.device_smem(torch.cuda.current_device()))
+
+
+def path_kernels(path, key_bits):
+    """Kernels one K5 call launches: the block path one; the radix path a
+    histogram, a scan and a scatter per 8-bit pass, then the totals, 7 count
+    rounds, the collection and the ordering."""
+    return 1 if path == "block" else 3 * -(-key_bits // 8) + 10
+
+
+def check_merge(key, score, k, label, run=0, excl=False, max_seg=0, quiet=False,
+                key_bits=fm.KEY_BITS, expect=True, launches=False):
     """K5 against its plain version: repeat runs bit-equal, top-k within the
-    tolerance; CUDA-event times and the bound.  Returns (err, ms, plain_ms,
+    tolerance; CUDA-event times and the bound (``launches``: also kernel
+    launches per call from torch.profiler).  Returns (err, ms, plain_ms,
     bound_ms, bound_by)."""
-    kw = dict(run=run, excl=excl, max_seg=max_seg)
+    kw = dict(run=run, excl=excl, max_seg=max_seg, key_bits=key_bits)
     ks, kd = fm.merge_scores_topk_fused(key, score, k, QB, **kw)
     ks2, kd2 = fm.merge_scores_topk_fused(key, score, k, QB, **kw)
     assert torch.equal(ks, ks2) and torch.equal(kd, kd2), f"{label}: repeat runs differ"
     ps, pd = fm.merge_scores_topk_fused_reference(key, score, k, QB, **kw)
     err = assert_topk_agree(ks.cpu(), kd.cpu(), ps.cpu(), pd.cpu())
-    assert bool((kd >= 0).any()), f"{label}: no result"
+    assert bool((kd >= 0).any()) == expect, f"{label}: result {'missing' if expect else 'unexpected'}"
     ms = cuda_ms(lambda: fm.merge_scores_topk_fused(key, score, k, QB, **kw))
     plain_ms = cuda_ms(lambda: fm.merge_scores_topk_fused_reference(key, score, k, QB, **kw))
     bound_ms, by = merge_bound(key, k)
     if not quiet:
-        log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({by})")
+        path = merge_path(key, k).path
+        extra = ""
+        if launches:
+            n = kernels_per_call(lambda: fm.merge_scores_topk_fused(key, score, k, QB, **kw))
+            want = path_kernels(path, key_bits)
+            assert n == want, f"{label}: {n} kernels per call on the {path} path, expected {want}"
+            extra = f", {n} kernel launches per call (CUDA graph)"
+        log(f"{label}: ok, path {path}, max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}){extra}")
     return err, ms, plain_ms, bound_ms, by
 
 
@@ -325,6 +400,14 @@ def merge_rows_runs(rng, B, L, excl, run=C, n_docs=20_000):
     return dev(key), dev(score, torch.float32)
 
 
+def edge_len(L):
+    """Lane counts at the K5 paths' edge: the block path's cap (one CTA's
+    lanes) and one past it."""
+    if isinstance(L, int):
+        return L
+    return fm.TILE_LANES + 1 if L.endswith("+1") else fm.TILE_LANES
+
+
 def phase_merge_kernels():
     rng = np.random.default_rng(SEED + 2)
     err_max = 0.0
@@ -332,7 +415,8 @@ def phase_merge_kernels():
         for B in (1, 2):
             key, score = merge_rows_full(rng, B, L)
             for k in TOP_KS:
-                err = check_merge(key, score, k, f"merge run=0 B={B} L={L} k={k}")[0]
+                err = check_merge(key, score, k, f"merge run=0 B={B} L={L} k={k}",
+                                  launches=L >= 1 << 20)[0]
                 err_max = max(err_max, err)
             del key, score
     for L in MERGE_L_RUNS:
@@ -342,6 +426,16 @@ def phase_merge_kernels():
                 label = f"merge run={C} B=24 L={L} excl={int(excl)} k={k}"
                 err = check_merge(key, score, k, label, run=C, excl=excl, max_seg=L // C)[0]
                 err_max = max(err_max, err)
+    for kind, B, L, key_bits in MERGE_EDGES:
+        L = edge_len(L)
+        key, score = merge_edge_rows(rng, kind, B, L)
+        key, score = dev(key), dev(score, torch.float32)
+        for k in sorted({min(k, L) for k in TOP_KS}):
+            label = f"merge edge {kind} B={B} L={L} key_bits={key_bits} k={k}"
+            err = check_merge(key, score, k, label, key_bits=key_bits, expect=kind != "pads",
+                              launches=True)[0]
+            err_max = max(err_max, err)
+        del key, score
     torch.cuda.synchronize()
     return err_max
 
@@ -388,7 +482,7 @@ def phase_probe():
 def phase_kernels(scorer):
     rng = np.random.default_rng(SEED)
     rec_np, starts, lens = synthetic_rec(rng)
-    rec = torch.from_numpy(rec_np).cuda()
+    rec = padded_rows(rec_np, "cuda")  # the DeviceIndex layout
     scalars = torch.tensor([7.5, 1.0], dtype=torch.float32, device="cuda")
     errs = {"full": 0.0, "lanes": 0.0}
     for phase, ncs in (("full", FULL_NC), ("lanes", LANES_NC)):
@@ -397,12 +491,19 @@ def phase_kernels(scorer):
             for k in TOP_KS:
                 label = f"{phase} NC={NC} k={k}"
                 check = check_full if phase == "full" else check_lanes
-                err, ms, plain_ms = check(scorer, rec, tables, scalars, k, label)
+                err, ms, plain_ms = check(scorer, rec, tables, scalars, k, label, SYN_KEY_BITS)
                 torch.cuda.synchronize()
                 errs[phase] = max(errs[phase], err)
                 bound_ms, _by = bm25_bound(tables, k, phase)
                 log(f"kernel {label:22s} B=1024 L={NC * C:6d}: ok, max_abs_err {err:.3g}, "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    for NC, k in FULL_LARGE_K:  # the top-k words in device scratch
+        tables = synthetic_tables(rng, starts, lens, 64, NC)
+        label = f"full NC={NC} k={k}"
+        err, ms, plain_ms = check_full(scorer, rec, tables, scalars, k, label, SYN_KEY_BITS)
+        errs["full"] = max(errs["full"], err)
+        log(f"kernel {label:22s} B=64 L={NC * C:6d}: ok, max_abs_err {err:.3g}, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return errs
 
 
@@ -435,7 +536,7 @@ def phase_z2o_kernels():
     err_max = 0.0
     for F in Z2O_F:
         rec_np, starts, lens = synthetic_rec(rng, F=F)
-        rec = torch.from_numpy(rec_np).cuda()
+        rec = padded_rows(rec_np, "cuda")
         for NC in Z2O_NC:
             args = (rec, *synthetic_z2o_tables(rng, starts, lens, 1024, NC))
             for k in TOP_KS:
@@ -475,7 +576,7 @@ def check_window_classes(dix, dispatches, scorer, k):
         kk = min(k, nc * dix.CHUNK)
         label = f"window class nc={nc} nj={nj} rows={jobs_flat.shape[0]} ({phase})"
         check = check_full if phase == "full" else check_lanes
-        err, ms, plain_ms = check(scorer, dix.rec, tables, scalars, kk, label)
+        err, ms, plain_ms = check(scorer, dix.rec, tables, scalars, kk, label, dix._key_bits)
         bound_ms, by = bm25_bound(tables, kk, phase)
         errs[phase] = max(errs[phase], err)
         t = times[phase]
@@ -483,13 +584,19 @@ def check_window_classes(dix, dispatches, scorer, k):
         t[1] += plain_ms
         t[2] += bound_ms
         t[3] = by if bound_ms else t[3]
+        occ = ""
+        if phase == "full":
+            ring, smem = fq.full_launch(nc * dix.CHUNK, dix.CHUNK, 1, kk, fq.device_smem(0)[1])
+            occ = (f", {_build.load().fused_query_occupancy(0, nc * dix.CHUNK, smem)} CTAs/SM "
+                   f"({smem} B shared, ring {ring})")
         log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({by})")
+            f"bound {bound_ms:.4f} ms ({by}){occ}")
         if phase == "lanes":  # K5 merges the K3 lanes
             ls, lk = fq.fused_query_topk(scorer, dix.rec, *tables, scalars, chunk=dix.CHUNK,
                                          k=kk, qterm_bits=QB, num_fields=1, phase="lanes")
             add_merge(errs, times, check_merge(lk, ls, kk, f"{label} merge", run=dix.CHUNK,
-                                               excl=True, max_seg=nc))
+                                               excl=True, max_seg=nc, key_bits=dix._key_bits,
+                                               launches=True))
     return errs, times
 
 
@@ -524,12 +631,13 @@ def profile_windows(submit, n=4):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     if busy_ms == 0:
         log(f"one window alone: {wall_ms:.3f} ms wall; device time not measured (no device events)")
-        return
+        return {}
     log(f"one window alone (profiled): {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall), idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  device {e.self_device_time_total / 1e3 / n:8.3f} ms/window  "
             f"calls {e.count // n:4d}/window  {e.key[:70]}")
+    return {e.key: (e.count / n, e.self_device_time_total / 1e3 / n) for e in events}
 
 
 def phase_main(scorer, card):
@@ -642,6 +750,9 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     try:
         for run in ("cold", "warm"):
             packed.clear()
+            shapes.clear()
+            for key in fm.path_calls:
+                fm.path_calls[key] = 0
             t = time.perf_counter()
             _s, slots, _keys = dix.query_batch_async(w, scorer, top_k=k).get_arrays()
             torch.cuda.synchronize()
@@ -665,10 +776,19 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     log(f"3r classes of the warm window by route (dispatches, rows): {routes}; heavy-cache "
         f"hits {int(ctr.get('heavy_cache_hits', 0))}, misses {int(ctr.get('heavy_cache_misses', 0))}; "
         f"host rows {int(ctr.get('device_fallback_queries', 0))} ({len(range_host)} of range queries)")
-    log(f"3r launches over cold + warm: {counts}; K5 L from {min(lanes)} to {max(lanes)}")
+    log(f"3r launches over cold + warm: {counts}")
+    q = np.percentile(lanes, [0, 10, 25, 50, 75, 90, 100]).astype(int).tolist()
+    log(f"3r K5 L over the warm window's {len(lanes)} calls: percentiles 0/10/25/50/75/90/100 "
+        f"{q}; L <= {fm.TILE_LANES}: {sum(L <= fm.TILE_LANES for L in lanes)}, <= 32768: "
+        f"{sum(fm.TILE_LANES < L <= 32768 for L in lanes)}, longer: "
+        f"{sum(L > 32768 for L in lanes)}; calls by path {dict(fm.path_calls)}")
     assert plan.has_range[rq].all() and plan.has_range.sum() == len(rq)
     assert not range_host and counts["merge_topk"] > 0 and routes.get("range+K5"), (range_host, counts)
-    profile_windows(lambda i: dix.query_batch_async(w, scorer, top_k=k), n=2)
+    ev = profile_windows(lambda i: dix.query_batch_async(w, scorer, top_k=k), n=2)
+    k5 = {name: c for name, c in ev.items() if any(x in name for x in K5_KERNELS)}
+    log(f"3r K5 kernel launches per warm window: {sum(c for c, _ms in k5.values()):g} "
+        f"({sum(ms_ for _c, ms_ in k5.values()):.3f} ms device; the bitonic multi-launch merge it "
+        f"replaced: 538 sort_tile + 1,122 stage + 245 topk_seg + doc_total launches)")
 
     # The range queries as f32 rows, against the f64 vectorized host path.
     sub = [w[i] for i in rq]
@@ -716,7 +836,8 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
             scorer, dix.rec, dix.field_avg, ones, torch.from_numpy(jobs_flat).cuda(), aux,
             chunk=dix.CHUNK, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=True,
         )
-        res = check_merge(key, score, min(k, nc * dix.CHUNK), f"3r class nc={nc}", quiet=True)
+        res = check_merge(key, score, min(k, nc * dix.CHUNK), f"3r class nc={nc}", quiet=True,
+                          key_bits=dix._key_bits)
         add_merge(errs, times, res)
         k5 = [max(k5[0], res[0])] + [a + b for a, b in zip(k5[1:], res[1:4])]
         n += 1
@@ -730,7 +851,8 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
             chunk=dix.CHUNK, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=rng,
         )
         kq = dix.config.heavy_cache_top_k if plan_q.nchunks[0] >= dix.config.heavy_cache_min_chunks else k
-        err = check_merge(key, score, kq, f"3r {q}: range class nc={nc} L={nc * dix.CHUNK} k={kq}")[0]
+        err = check_merge(key, score, kq, f"3r {q}: range class nc={nc} L={nc * dix.CHUNK} k={kq}",
+                          key_bits=dix._key_bits, launches=True)[0]
         errs["merge_topk"] = max(errs["merge_topk"], err)
         del key, score
     return counts["merge_topk"]

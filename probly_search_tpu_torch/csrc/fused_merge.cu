@@ -7,8 +7,7 @@
 //
 //   sort the row by key                 (run = 0: a full sort; run > 0: the
 //                                        row arrives as ascending runs of
-//                                        `run` lanes and only the merge
-//                                        levels from `run` up are done)
+//                                        `run` lanes)
 //   max over each run of equal keys     ("max within a query term")
 //   sum of those maxima per doc         ("sum across query terms", in
 //                                        ascending qterm order)
@@ -17,372 +16,444 @@
 // live = key != INT32_MAX && key >= 0: run = 0 rows pad with INT32_MAX only;
 // run > 0 rows carry -1 leading pads, INT32_MAX trailing pads and -inf
 // scores on latently dead docs (which poison the doc's total).  excl drops
-// totals that are not > 0.  The Pallas `max_seg` bound only shortens its
-// scan ladder; this kernel walks each doc's run, so it needs none.
+// totals that are not > 0.
 //
-// One call launches several kernels, because a row of up to 2^24 lanes does
-// not fit one block's shared memory:
-//   1. sort_tile:   tiles of kTile lanes sorted in shared memory (every
-//                   network level whose blocks fit a tile);
-//   2. per level past the tile: one global launch per comparator distance
-//      of at least a tile (stage), then sort_tile again for the distances
-//      that fit a tile;
-//   3. doc_total:   the thread on each doc's last lane walks the doc's run
-//                   and leaves its total there (-inf on every other lane);
-//   4. topk_seg:    segments of kSeg lanes reduce to k candidates each (k
-//                   rounds of a block arg-max in shared memory), repeated
-//                   until one segment is left, whose k winners are the row's
-//                   result.
-// The network is the bitonic sorter in its all-ascending form (each level a
-// "flip" stage pairing i with the mirror lane, then half-cleaners), run on a
-// virtual power-of-two lane space whose tail [L, Lp) holds phantom +inf
-// keys: a pair whose high lane is a phantom never swaps, so skipping it is
-// exactly the virtual network on the real lanes, for any L.  The network is
-// not stable; equal keys only meet in the max, and distinct keys of a doc
-// are summed in key order, so the result does not depend on it.
+// What bounds it on this card: the bytes of the row (8 B a lane, read once)
+// and, past one block's shared memory, the passes over device memory that a
+// sort needs.  Two paths, chosen by shape alone (B, L, k and the card's
+// shared-memory limit; ops/fused_merge.py merge_plan):
 //
-// What bounds it on this card: memory traffic of the sort.  Each global
-// stage reads and writes the row's 8 B per lane once; a row of 2^23 lanes
-// takes 10 sort_tile passes and 55 global stages.  The bound reckoned for
-// it (chip_smoke.py) is the function's own traffic: each input lane read
-// once and the [B, k] result written once.  The design keeps every stage
-// with a distance below the tile in shared memory, so global stages are
-// only the log2(L / kTile) distances of each long level.
+//   block    L <= 16,384: one CTA per row, one launch.  The row sits in
+//            shared memory; the block back end (block_merge.cuh) radix-sorts
+//            its live lanes over `key_bits`, totals the docs and selects the
+//            top k in one pass.
+//   radix    longer rows: an LSD radix sort of the live lanes over the
+//            `key_bits` bits that live keys use (3 passes of 8 bits at 24),
+//            each pass a histogram (with the digit totals), a scan (one block
+//            per digit) and a stable scatter kernel; then
+//            one kernel totals the docs, compacts the candidates and builds
+//            the first histogram of a radix select on the same 64-bit words;
+//            7 rounds of a count kernel (each block replays the earlier
+//            rounds' picks from their histograms and returns at once when the
+//            threshold is found), a compaction of the k winners and one block
+//            that orders them.
+// No path calls a library sort or top-k; no path is chosen because another
+// failed.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "block_merge.cuh"
+
+using namespace blockmerge;
+
 namespace {
 
-constexpr int32_t kInvalidKey = 0x7fffffff;
-constexpr int32_t kNoLane = 0x7fffffff;
-constexpr int kTile = 8192;          // lanes per block in sort_tile
-constexpr int kTileThreads = 1024;
-constexpr int kStageThreads = 256;
-constexpr int kSegThreads = 512;
-
-__device__ __forceinline__ void cmpx(int32_t* ks, float* vs, int64_t i, int64_t j) {
-  const int32_t ki = ks[i], kj = ks[j];
-  if (ki > kj) {
-    ks[i] = kj;
-    ks[j] = ki;
-    const float v = vs[i];
-    vs[i] = vs[j];
-    vs[j] = v;
-  }
-}
-
-// Lanes (i, j) of pair t in a flip stage of level m (blocks of 2m lanes,
-// i paired with its mirror) or a half-cleaner of distance d.
-__device__ __forceinline__ void flip_pair(int t, int m, int& i, int& j) {
-  const int base = (t & ~(m - 1)) << 1, o = t & (m - 1);
-  i = base + o;
-  j = base + 2 * m - 1 - o;
-}
-
-__device__ __forceinline__ void half_pair(int t, int d, int& i, int& j) {
-  i = ((t & ~(d - 1)) << 1) | (t & (d - 1));
-  j = i + d;
-}
-
-// Grid (tiles, B).  Loads tile `blockIdx.x` of row `blockIdx.y` from
-// (kin, vin), runs half-cleaners d_top .. 1 (when d_top > 0), then levels
-// m_lo <= m < m_hi, and stores the tile to (kout, vout), which may be
-// (kin, vin).  All pairs lie in the tile; pairs whose high lane is at or
-// past L are skipped.
-__global__ void __launch_bounds__(kTileThreads)
-    sort_tile_kernel(const int32_t* kin, const float* vin, int32_t* kout, float* vout, int L,
-                     int tile, int d_top, int m_lo, int m_hi) {
-  extern __shared__ int32_t smem[];
-  int32_t* ks = smem;
-  float* vs = reinterpret_cast<float*>(smem + tile);
-  const int64_t row = (int64_t)blockIdx.y * L;
-  const int t0 = blockIdx.x * tile;
-  const int n = min(tile, L - t0);  // real lanes of this tile
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    ks[p] = kin[row + t0 + p];
-    vs[p] = vin[row + t0 + p];
-  }
-  __syncthreads();
-  const int half = tile >> 1;
-  for (int d = d_top; d >= 1; d >>= 1) {
-    for (int t = threadIdx.x; t < half; t += blockDim.x) {
-      int i, j;
-      half_pair(t, d, i, j);
-      if (j < n) cmpx(ks, vs, i, j);
-    }
-    __syncthreads();
-  }
-  for (int m = m_lo; m < m_hi; m <<= 1) {
-    for (int t = threadIdx.x; t < half; t += blockDim.x) {
-      int i, j;
-      flip_pair(t, m, i, j);
-      if (j < n) cmpx(ks, vs, i, j);
-    }
-    __syncthreads();
-    for (int d = m >> 1; d >= 1; d >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        int i, j;
-        half_pair(t, d, i, j);
-        if (j < n) cmpx(ks, vs, i, j);
-      }
-      __syncthreads();
-    }
-  }
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    kout[row + t0 + p] = ks[p];
-    vout[row + t0 + p] = vs[p];
-  }
-}
-
-// One comparator stage in device memory: grid (ceil(Lp / 2 / threads), B);
-// flip stage of level m when `flip`, else the half-cleaner of distance d.
-__global__ void __launch_bounds__(kStageThreads)
-    stage_kernel(int32_t* __restrict__ ks, float* __restrict__ vs, int L, int half,
-                 int m, int d, int flip) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= half) return;
-  int i, j;
-  if (flip)
-    flip_pair(t, m, i, j);
-  else
-    half_pair(t, d, i, j);
-  if (j < L) {
-    const int64_t row = (int64_t)blockIdx.y * L;
-    cmpx(ks + row, vs + row, i, j);
-  }
-}
-
-// Doc totals on the sorted row: grid (ceil(L / threads), B).
-__global__ void __launch_bounds__(kStageThreads)
-    doc_total_kernel(const int32_t* __restrict__ ks, const float* __restrict__ vs,
-                     float* __restrict__ tot, int L, int qb, int excl) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L) return;
-  const int64_t row = (int64_t)blockIdx.y * L;
-  const int32_t* k = ks + row;
-  const float* v = vs + row;
-  const int32_t key = k[i];
-  float out = -INFINITY;
-  const int32_t doc = key >> qb;
-  if (key >= 0 && key != kInvalidKey && !(i + 1 < L && (k[i + 1] >> qb) == doc)) {
-    int h = i;
-    while (h > 0 && (k[h - 1] >> qb) == doc) --h;
-    float total = 0.0f;
-    int32_t run_key = k[h];
-    float run_max = v[h];
-    for (int j = h + 1; j <= i; ++j) {
-      const int32_t kj = k[j];
-      const float vj = v[j];
-      if (kj == run_key) {
-        run_max = fmaxf(run_max, vj);
-      } else {
-        total += run_max;
-        run_key = kj;
-        run_max = vj;
-      }
-    }
-    total += run_max;
-    if (!excl || total > 0.0f) out = total;
-  }
-  tot[row + i] = out;
-}
-
-// (value, lane, slot) arg-max: the larger value, ties to the lower lane.
-struct Best {
-  float v;
-  int lane, slot;
-};
-
-__device__ __forceinline__ void better(Best& b, float v, int lane, int slot) {
-  if (v > b.v || (v == b.v && lane < b.lane)) {
-    b.v = v;
-    b.lane = lane;
-    b.slot = slot;
-  }
-}
-
-__device__ __forceinline__ void warp_best(Best& b) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v = __shfl_down_sync(0xffffffffu, b.v, off);
-    const int lane = __shfl_down_sync(0xffffffffu, b.lane, off);
-    const int slot = __shfl_down_sync(0xffffffffu, b.slot, off);
-    better(b, v, lane, slot);
-  }
-}
-
-// Grid (nseg, B).  Segment s of row r holds entries [s * seg, (s+1) * seg)
-// of the row's n candidates (values `val`, lanes `lane`, or the entry's own
-// position when `lane` is null).  Writes its k best as candidates
-// [B, nseg, k] (cv, ci), or, when `out_s` is set (one segment), the row's
-// result: the score and the doc of the winning lane of the sorted keys.
-__global__ void __launch_bounds__(kSegThreads)
-    topk_seg_kernel(const float* __restrict__ val, const int32_t* __restrict__ lane,
-                    int n, int seg, int k, float* __restrict__ cv,
-                    int32_t* __restrict__ ci, const int32_t* __restrict__ ks, int L,
-                    int qb, float* __restrict__ out_s, int32_t* __restrict__ out_d) {
-  extern __shared__ int32_t smem[];
-  float* sv = reinterpret_cast<float*>(smem);
-  int32_t* si = smem + seg;
-  __shared__ Best red[kSegThreads / 32];
-  __shared__ int done;
-
-  const int s = blockIdx.x, r = blockIdx.y, nseg = gridDim.x;
-  const int tid = threadIdx.x;
-  const int64_t src = (int64_t)r * n + (int64_t)s * seg;
-  const int m = min(seg, n - s * seg);
-  for (int p = tid; p < seg; p += blockDim.x) {
-    if (p < m) {
-      sv[p] = val[src + p];
-      si[p] = lane ? lane[src + p] : s * seg + p;
-    } else {
-      sv[p] = -INFINITY;
-      si[p] = kNoLane;
-    }
-  }
-  __syncthreads();
-
-  const int w = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const int64_t dst = ((int64_t)r * nseg + s) * k;
-  for (int q = 0; q < k; ++q) {
-    Best b{-INFINITY, kNoLane, -1};
-    for (int p = tid; p < seg; p += blockDim.x) better(b, sv[p], si[p], p);
-    warp_best(b);
-    if (w == 0) red[warp] = b;
-    __syncthreads();
-    if (warp == 0) {
-      b = w < nwarps ? red[w] : Best{-INFINITY, kNoLane, -1};
-      warp_best(b);
-      if (w == 0) {
-        const bool found = b.v > -INFINITY;
-        const int last = found ? q + 1 : k;
-        for (int o = q; o < last; ++o) {
-          if (out_s) {
-            out_s[(int64_t)r * k + o] = found ? b.v : -INFINITY;
-            out_d[(int64_t)r * k + o] = found ? ks[(int64_t)r * L + b.lane] >> qb : -1;
-          } else {
-            cv[dst + o] = found ? b.v : -INFINITY;
-            ci[dst + o] = found ? b.lane : kNoLane;
-          }
-        }
-        if (found) sv[b.slot] = -INFINITY;
-        done = !found;
-      }
-    }
-    __syncthreads();
-    if (done) break;
-  }
-}
+constexpr int kThreads = 1024;          // block path
+constexpr int kSpan = 16;               // lanes a thread holds in a radix pass
+constexpr int kRadixThreads = 256;
+// Lanes per block of the radix passes: short rows take small tiles (more
+// blocks in flight), long rows large ones (fewer per-block counts to scan).
+__host__ __device__ __forceinline__ int radix_tile(int L) { return L <= (1 << 20) ? 1024 : 4096; }
+constexpr int kRadixGrid = 1056;        // blocks per row of the grid-stride kernels
+constexpr int kMaxPasses = 4;           // 8-bit digits of a 31-bit key
 
 size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
 
-int seg_lanes(int k) { return k <= 2048 ? 8192 : 16384; }
+// --------------------------------------------------------------------------
+// block path
 
-int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+__global__ void __launch_bounds__(kThreads)
+    merge_block_kernel(const int32_t* __restrict__ key, const float* __restrict__ score, int L,
+                       int k, int qb, int key_bits, int excl, float* __restrict__ out_s,
+                       int32_t* __restrict__ out_d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ SelectSmem sel;
+  __shared__ RadixSmem<kThreads> rs;
+  int32_t* ks = reinterpret_cast<int32_t*>(smem);
+  float* vs = reinterpret_cast<float*>(ks + L);
+  uint64_t* cand = reinterpret_cast<uint64_t*>(vs + L);
+  const int64_t row = blockIdx.x;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < L; i += kThreads) {
+    ks[i] = key[row * L + i];
+    vs[i] = score[row * L + i];
+  }
+  __syncthreads();
+  const int n = block_radix_sort<kThreads, kSpan>(ks, vs, L, key_bits, rs);
+  const uint64_t top = block_doc_totals<kThreads>(ks, vs, n, qb, excl);
+  const int m = block_select<kThreads>(ks, vs, n, qb, k, top, cand, sel, rs.words(), rs.kWords);
+  write_topk<kThreads>(cand, m, k, out_s + row * k, out_d + row * k);
+}
 
-// Candidates per row after the first and the second top-k pass.
-void cand_sizes(int L, int k, int64_t& n1, int64_t& n2) {
-  const int seg = seg_lanes(k);
-  n1 = ceil_div(L, seg) * k;
-  n2 = ceil_div(n1, seg) * k;
+// --------------------------------------------------------------------------
+// radix path.  Per row b: bh int32[256][nblk] digit counts (then offsets),
+// ints[4] = (live lanes, candidates, winners collected, -), sel uint32[8][256].
+
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_hist_kernel(const int32_t* __restrict__ kin, int L, const int* __restrict__ ints,
+                      int shift, int nblk, int filter, int* __restrict__ bh,
+                      int* __restrict__ dtot) {
+  __shared__ int hist[256];
+  const int b = blockIdx.y, blk = blockIdx.x, tid = threadIdx.x;
+  const int n = filter ? L : ints[b * 4];
+  hist[tid] = 0;
+  __syncthreads();
+  const int tile = radix_tile(L);
+  const int lo = blk * tile, hi = min(n, lo + tile);
+  const int32_t* k = kin + (int64_t)b * L;
+  for (int i = lo + tid; i < hi; i += kRadixThreads) {
+    const int32_t x = k[i];
+    if (!filter || live_key(x)) atomicAdd(&hist[(x >> shift) & 255], 1);
+  }
+  __syncthreads();
+  bh[((int64_t)b * 256 + tid) * nblk + blk] = hist[tid];
+  if (hist[tid]) atomicAdd(&dtot[b * 256 + tid], hist[tid]);
+}
+
+// Grid (256, B): block d turns digit d's per-block counts into scatter
+// offsets, the digit's base (the counts of the lower digits, from the
+// per-pass digit totals) plus an exclusive scan over the blocks.  Pass 0
+// also records the live lanes and clears the row's select state.
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_scan_kernel(int* __restrict__ bh, int nblk, const int* __restrict__ dtot,
+                      int* __restrict__ ints, unsigned* __restrict__ sel, int first_pass) {
+  constexpr int kWarps = kRadixThreads / 32;
+  __shared__ int warp_sum[kWarps];
+  __shared__ int base;
+  const int d = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* dt = dtot + b * 256;
+  if (warp == 0) {
+    int s = 0;
+    for (int q = lane; q < d; q += 32) s += dt[q];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    if (lane == 0) base = s;
+  }
+  int* h = bh + ((int64_t)b * 256 + d) * nblk;
+  const int per = (nblk + kRadixThreads - 1) / kRadixThreads;
+  const int lo = min(nblk, tid * per), hi = min(nblk, lo + per);
+  int s = 0;
+  for (int i = lo; i < hi; ++i) s += h[i];
+  int incl = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int run = base + incl - s;
+  for (int w = 0; w < warp; ++w) run += warp_sum[w];
+  for (int i = lo; i < hi; ++i) {
+    const int c = h[i];
+    h[i] = run;
+    run += c;
+  }
+  if (first_pass) {
+    if (d == 255 && tid == 0) ints[b * 4] = base + dt[255];
+    if (d == 0) {
+      if (tid < 3) ints[b * 4 + 1 + tid] = 0;
+      for (int i = tid; i < 8 * 256; i += kRadixThreads) sel[(int64_t)b * 8 * 256 + i] = 0;
+    }
+  }
+}
+
+// Stable scatter of one block's lanes by digit: sub-tiles of 256 lanes in
+// lane order, ranks within a warp by __match_any_sync, across warps by a
+// per-digit prefix over the warps' counts.
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_scatter_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin, int L,
+                         const int* __restrict__ ints, int shift, int nblk, int filter,
+                         const int* __restrict__ bh, int32_t* __restrict__ kout,
+                         float* __restrict__ vout) {
+  constexpr int kWarps = kRadixThreads / 32;
+  __shared__ int base[256];
+  __shared__ int wcnt[kWarps][256];
+  const int b = blockIdx.y, blk = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int n = filter ? L : ints[b * 4];
+  const int64_t row = (int64_t)b * L;
+  base[tid] = bh[((int64_t)b * 256 + tid) * nblk + blk];
+  const int tile = radix_tile(L);
+  const int lo = blk * tile, hi = min(n, lo + tile);
+  const unsigned lt = (1u << lane) - 1;
+  for (int sub = lo; sub < hi; sub += kRadixThreads) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) wcnt[w][tid] = 0;
+    __syncthreads();
+    const int i = sub + tid;
+    int32_t x = 0;
+    float v = 0.0f;
+    bool ok = i < hi;
+    if (ok) {
+      x = kin[row + i];
+      v = vin[row + i];
+      ok = !filter || live_key(x);
+    }
+    const int d = ok ? (x >> shift) & 255 : 256;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const int rank = __popc(peers & lt);
+    if (ok && rank == 0) wcnt[warp][d] = __popc(peers);
+    __syncthreads();
+    {
+      int run = base[tid];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = wcnt[w][tid];
+        wcnt[w][tid] = run;
+        run += c;
+      }
+      base[tid] = run;
+    }
+    __syncthreads();
+    if (ok) {
+      const int p = wcnt[warp][d] + rank;
+      kout[row + p] = x;
+      vout[row + p] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// Doc totals of the sorted live lanes; each valid total's word goes to the
+// candidate list and the first select histogram (top byte).
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_totals_kernel(const int32_t* __restrict__ ks, const float* __restrict__ vs, int L,
+                        int qb, int excl, int* __restrict__ ints, uint64_t* __restrict__ cand,
+                        unsigned* __restrict__ sel) {
+  __shared__ unsigned hist[256];
+  const int b = blockIdx.y, tid = threadIdx.x;
+  hist[tid] = 0;
+  __syncthreads();
+  const int n = ints[b * 4];
+  const int32_t* k = ks + (int64_t)b * L;
+  const float* v = vs + (int64_t)b * L;
+  for (int i0 = blockIdx.x * kRadixThreads; i0 < n; i0 += gridDim.x * kRadixThreads) {
+    const int i = i0 + tid;
+    int bin = -1;
+    if (i < n) {
+      const int32_t x = k[i];
+      if (is_tail(k, i, n, qb, x)) {
+        int h;
+        const float t = doc_total(
+            i, x >> qb, qb, [&](int j) { return k[j]; }, [&](int j) { return v[j]; }, h);
+        if (t > -INFINITY && (!excl || t > 0.0f)) {
+          const uint64_t w = select_word(t, x >> qb);
+          cand[(int64_t)b * L + atomicAdd(&ints[b * 4 + 1], 1)] = w;
+          bin = (int)(w >> 56);
+        }
+      }
+    }
+    warp_hist_add(hist, bin);
+  }
+  __syncthreads();
+  if (hist[tid]) atomicAdd(&sel[(int64_t)b * 8 * 256 + tid], hist[tid]);
+}
+
+// A row's select state: the threshold prefix of the rounds picked so far,
+// the words still needed below it, the last picked round's shift, done
+// (the threshold found), and m = min(k, candidates).
+struct SelState {
+  unsigned long long prefix;
+  int need, shift, done, count;
+};
+
+// Warp 0 of a block: replay the picks of rounds [0, rounds) from the row's
+// histograms (sel[round][256]) into `st`.  Every lane runs every shuffle.
+__device__ void replay(const unsigned* sel, int rounds, int k, SelState& st) {
+  const int total = hist_total(sel);
+  int need = min(k, total);
+  unsigned long long prefix = 0;
+  int shift = 56, done = need == 0;
+  for (int q = 0; q < rounds && !done; ++q) {
+    const unsigned* h = sel + q * 256;
+    int bin, above;
+    pick_bin(h, need, bin, above);
+    shift = 56 - 8 * q;
+    prefix |= (unsigned long long)bin << shift;
+    need -= above;
+    done = (int)h[bin] == need;
+  }
+  if ((threadIdx.x & 31) == 0) {
+    st.prefix = prefix;
+    st.need = need;
+    st.shift = shift;
+    st.done = done;
+    st.count = min(k, total);
+  }
+}
+
+// Round `round`'s histogram: the next byte of the candidates that match the
+// prefix picked from the earlier rounds (each block replays those picks).
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_count_kernel(const uint64_t* __restrict__ cand, int L, const int* __restrict__ ints,
+                       unsigned* __restrict__ sel, int k, int round) {
+  __shared__ unsigned hist[256];
+  __shared__ SelState st;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  unsigned* s = sel + (int64_t)b * 8 * 256;
+  hist[tid] = 0;
+  if (tid < 32) replay(s, round, k, st);
+  __syncthreads();
+  if (st.done) return;
+  const int shift = 56 - 8 * round;
+  const unsigned long long hi = st.prefix >> (shift + 8);
+  const int n = ints[b * 4 + 1];
+  const uint64_t* c = cand + (int64_t)b * L;
+  for (int i0 = blockIdx.x * kRadixThreads; i0 < n; i0 += gridDim.x * kRadixThreads) {
+    const int i = i0 + tid;
+    const uint64_t w = i < n ? c[i] : 0;
+    warp_hist_add(hist, i < n && (w >> (shift + 8)) == hi ? (int)((w >> shift) & 255) : -1);
+  }
+  __syncthreads();
+  if (hist[tid]) atomicAdd(&s[round * 256 + tid], hist[tid]);
+}
+
+// The min(k, candidates) words at or above the threshold, unordered.
+__global__ void __launch_bounds__(kRadixThreads)
+    radix_collect_kernel(const uint64_t* __restrict__ cand, int L, int* __restrict__ ints,
+                         const unsigned* __restrict__ sel, int k, int kpad,
+                         uint64_t* __restrict__ outc) {
+  __shared__ SelState st;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  if (tid < 32) replay(sel + (int64_t)b * 8 * 256, 8, k, st);
+  __syncthreads();
+  if (st.count == 0) return;
+  const unsigned long long thr = st.prefix >> st.shift;
+  const int n = ints[b * 4 + 1];
+  const uint64_t* c = cand + (int64_t)b * L;
+  for (int i = blockIdx.x * kRadixThreads + tid; i < n; i += gridDim.x * kRadixThreads) {
+    const uint64_t w = c[i];
+    if ((w >> st.shift) >= thr) outc[(int64_t)b * kpad + atomicAdd(&ints[b * 4 + 2], 1)] = w;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    radix_finish_kernel(const uint64_t* __restrict__ outc, const int* __restrict__ ints, int k,
+                        int kpad, float* __restrict__ out_s, int32_t* __restrict__ out_d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* w = reinterpret_cast<uint64_t*>(smem);
+  const int64_t b = blockIdx.x;
+  const int m = min(k, ints[b * 4 + 2]);
+  for (int i = threadIdx.x; i < m; i += kThreads) w[i] = outc[b * kpad + i];
+  __syncthreads();
+  write_topk<kThreads>(w, m, k, out_s + b * k, out_d + b * k);
+}
+
+// Scratch of the radix path.
+struct RadixWs {
+  int32_t* keys[2];
+  float* vals[2];
+  uint64_t* cand;
+  int* bh;
+  int* dtot;
+  unsigned* sel;
+  int* ints;
+  uint64_t* outc;
+};
+
+// The radix path's scratch laid out from `ws` (ops/fused_merge.py
+// merge_plan sizes it the same way); returns the bytes it needs.
+size_t radix_ws(void* ws, int B, int L, int kpad, int nblk, RadixWs* w) {
+  char* const base = (char*)ws;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* q = base + off;
+    off += align256(bytes);
+    return q;
+  };
+  const size_t lanes = (size_t)B * L;
+  for (int i = 0; i < 2; ++i) {
+    w->keys[i] = (int32_t*)take(lanes * 4);
+    w->vals[i] = (float*)take(lanes * 4);
+  }
+  w->cand = (uint64_t*)take(lanes * 8);
+  w->bh = (int*)take((size_t)B * 256 * nblk * 4);
+  w->dtot = (int*)take((size_t)B * kMaxPasses * 256 * 4);
+  w->sel = (unsigned*)take((size_t)B * 8 * 256 * 4);
+  w->ints = (int*)take((size_t)B * 16);
+  w->outc = (uint64_t*)take((size_t)B * kpad * 8);
+  return off;
+}
+
+int launch_radix(const int32_t* key, const float* score, int B, int L, int k, int qb, int excl,
+                 int key_bits, void* ws, long long ws_bytes, float* out_s, int32_t* out_d,
+                 cudaStream_t st) {
+  const int nblk = (L + radix_tile(L) - 1) / radix_tile(L);
+  const int kpad = next_pow2(k);
+  RadixWs w;
+  if (radix_ws(ws, B, L, kpad, nblk, &w) > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
+  const dim3 pass_grid(nblk, B);
+  const int passes = (key_bits + 7) / 8;
+  const int32_t* kin = key;
+  const float* vin = score;
+  int cur = 0;
+  cudaError_t e = cudaMemsetAsync(w.dtot, 0, (size_t)B * kMaxPasses * 256 * 4, st);
+  if (e != cudaSuccess) return (int)e;
+  for (int p = 0; p < passes; ++p) {
+    const int first = p == 0;
+    int* dtot = w.dtot + (size_t)p * B * 256;
+    radix_hist_kernel<<<pass_grid, kRadixThreads, 0, st>>>(kin, L, w.ints, 8 * p, nblk, first,
+                                                           w.bh, dtot);
+    radix_scan_kernel<<<dim3(256, B), kRadixThreads, 0, st>>>(w.bh, nblk, dtot, w.ints, w.sel,
+                                                              first);
+    radix_scatter_kernel<<<pass_grid, kRadixThreads, 0, st>>>(
+        kin, vin, L, w.ints, 8 * p, nblk, first, w.bh, w.keys[cur], w.vals[cur]);
+    kin = w.keys[cur];
+    vin = w.vals[cur];
+    cur ^= 1;
+  }
+  const dim3 grid(min((L + kRadixThreads - 1) / kRadixThreads, kRadixGrid), B);
+  radix_totals_kernel<<<grid, kRadixThreads, 0, st>>>(kin, vin, L, qb, excl, w.ints, w.cand,
+                                                      w.sel);
+  for (int round = 1; round < 8; ++round)
+    radix_count_kernel<<<grid, kRadixThreads, 0, st>>>(w.cand, L, w.ints, w.sel, k, round);
+  radix_collect_kernel<<<grid, kRadixThreads, 0, st>>>(w.cand, L, w.ints, w.sel, k, kpad,
+                                                       w.outc);
+  radix_finish_kernel<<<B, kThreads, (size_t)kpad * 8, st>>>(w.outc, w.ints, k, kpad, out_s,
+                                                              out_d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of scratch one merge_topk call needs.
-long long merge_topk_workspace(int B, int L, int k) {
-  int64_t n1, n2;
-  cand_sizes(L, k, n1, n2);
-  const size_t lanes = (size_t)B * L;
-  return (long long)(3 * align256(lanes * 4) + 2 * align256((size_t)B * n1 * 4) +
-                     2 * align256((size_t)B * n2 * 4));
+// Once per device: lift the block kernel's shared-memory cap to the card's
+// opt-in maximum (less its static shared memory); returns the dynamic bytes
+// a block may use (< 0: error).
+int merge_topk_init(int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  int smem_max = 0;
+  if (cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  const int avail = smem_max - (int)(sizeof(SelectSmem) + sizeof(RadixSmem<kThreads>) + 64);
+  if (cudaFuncSetAttribute(merge_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           avail) != cudaSuccess)
+    return -1;
+  return avail;
 }
 
 // K5 on `stream` of CUDA device `device`: key int32[B, L], score f32[B, L]
-// -> out_s f32[B, k], out_d int32[B, k].  `ws` holds merge_topk_workspace
-// bytes.  Returns the first CUDA error (0 = ok).
-int merge_topk(int device, const int32_t* key, const float* score, int B, int L,
-               int k, int qterm_bits, int run, int excl, void* ws, float* out_s,
-               int32_t* out_d, void* stream) {
+// -> out_s f32[B, k], out_d int32[B, k], along the path merge_plan chose
+// (0 block, with `smem` bytes of dynamic shared memory; 1 radix over
+// `key_bits`, in `ws`, `ws_bytes` bytes of scratch).  Returns the first CUDA
+// error (0 = ok); cudaErrorInvalidValue when the scratch is too small.
+int merge_topk(int device, const int32_t* key, const float* score, int B, int L, int k,
+               int qterm_bits, int excl, int key_bits, int path, long long smem, void* ws,
+               long long ws_bytes, float* out_s, int32_t* out_d, void* stream) {
   if (B == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  int64_t n1, n2;
-  cand_sizes(L, k, n1, n2);
-  char* p = (char*)ws;
-  const size_t lanes = (size_t)B * L;
-  int32_t* ks = (int32_t*)p;
-  p += align256(lanes * 4);
-  float* vs = (float*)p;
-  p += align256(lanes * 4);
-  float* tot = (float*)p;
-  p += align256(lanes * 4);
-  float* cv[2];
-  int32_t* ci[2];
-  cv[0] = (float*)p;
-  p += align256((size_t)B * n1 * 4);
-  ci[0] = (int32_t*)p;
-  p += align256((size_t)B * n1 * 4);
-  cv[1] = (float*)p;
-  p += align256((size_t)B * n2 * 4);
-  ci[1] = (int32_t*)p;
-
-  // 1-2. Sort.  Levels start at `run` (1 for a full sort).
-  int Lp = 1;
-  while (Lp < L) Lp <<= 1;
-  const int tile = Lp < kTile ? Lp : kTile;
-  const int ntiles = (int)ceil_div(L, tile);
-  const int m0 = run > 0 ? run : 1;
-  const size_t tile_smem = (size_t)tile * 8;
-  e = cudaFuncSetAttribute(sort_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)tile_smem);
-  if (e != cudaSuccess) return (int)e;
-  const int tile_threads = tile / 2 < kTileThreads ? (tile / 2 < 32 ? 32 : tile / 2) : kTileThreads;
-  sort_tile_kernel<<<dim3(ntiles, B), tile_threads, tile_smem, st>>>(
-      key, score, ks, vs, L, tile, 0, m0, tile);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int half = Lp / 2;
-  const dim3 stage_grid((unsigned)ceil_div(half, kStageThreads), B);
-  for (int m = m0 > tile ? m0 : tile; m < Lp; m <<= 1) {
-    stage_kernel<<<stage_grid, kStageThreads, 0, st>>>(ks, vs, L, half, m, 0, 1);
-    for (int d = m >> 1; d >= tile; d >>= 1)
-      stage_kernel<<<stage_grid, kStageThreads, 0, st>>>(ks, vs, L, half, m, d, 0);
-    sort_tile_kernel<<<dim3(ntiles, B), tile_threads, tile_smem, st>>>(
-        ks, vs, ks, vs, L, tile, tile >> 1, 0, 0);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (path == 0) {
+    merge_block_kernel<<<B, kThreads, (size_t)smem, st>>>(key, score, L, k, qterm_bits,
+                                                          key_bits, excl, out_s, out_d);
+    return (int)cudaGetLastError();
   }
-
-  // 3. Doc totals.
-  doc_total_kernel<<<dim3((unsigned)ceil_div(L, kStageThreads), B), kStageThreads, 0, st>>>(
-      ks, vs, tot, L, qterm_bits, excl);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  // 4. Top-k passes.
-  const int seg = seg_lanes(k);
-  const size_t seg_smem = (size_t)seg * 8;
-  e = cudaFuncSetAttribute(topk_seg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)seg_smem);
-  if (e != cudaSuccess) return (int)e;
-  const float* val = tot;
-  const int32_t* lane = nullptr;
-  int64_t n = L;
-  for (int pass = 0; n > seg; ++pass) {
-    const int nseg = (int)ceil_div(n, seg);
-    const int b = pass & 1;
-    topk_seg_kernel<<<dim3(nseg, B), kSegThreads, seg_smem, st>>>(
-        val, lane, (int)n, seg, k, cv[b], ci[b], ks, L, qterm_bits, nullptr, nullptr);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    val = cv[b];
-    lane = ci[b];
-    n = (int64_t)nseg * k;
-  }
-  topk_seg_kernel<<<dim3(1, B), kSegThreads, seg_smem, st>>>(
-      val, lane, (int)n, seg, k, nullptr, nullptr, ks, L, qterm_bits, out_s, out_d);
-  return (int)cudaGetLastError();
+  return launch_radix(key, score, B, L, k, qterm_bits, excl, key_bits, ws, ws_bytes, out_s, out_d,
+                      st);
 }
 
 }  // extern "C"

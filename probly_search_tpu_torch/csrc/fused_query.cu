@@ -4,24 +4,30 @@
 // (_query_kernel / _query_kernel_body, launched by fused_query_topk) and its
 // merge stage, probly_search_tpu/ops/pallas_merge.py (merge_body with
 // _oddeven_merge_runs_inplace and _segmented_scan_inplace).  Two entry
-// points share the gather + score stage:
+// points share the scoring of a lane:
 //
 //   fused_query_full   phase "full":  one CTA per query row; the row's
 //                      NC * C scored lanes live in dynamic shared memory,
-//                      are merged, reduced per doc and top-k selected there;
-//                      only [B, k] results go back to device memory.
+//                      are merged, reduced per doc and top-k selected there
+//                      (block_merge.cuh); only [B, k] results go back to
+//                      device memory.
 //   fused_query_lanes  phase "lanes": one CTA per (row, chunk); writes the
 //                      [B, NC * C] key and score lanes to device memory for
 //                      classes too wide for one CTA's shared memory (the
-//                      merge then runs in torch).
+//                      merge kernel K5 then merges them).
 //
 // What bounds it on this card: the gather.  Each payload lane reads R int32
 // rows of the transposed posting record array rec[R, P + C] (16 B per lane at
-// R = 4, one field), scattered over the index by the chunk starts; the merge
-// and top-k touch shared memory only.  The design reads every row of rec
-// coalesced along the lanes (neighbouring threads, neighbouring postings),
-// reads nothing for pad lanes and dead chunks, skips rows that have no live
-// chunk, and keeps every intermediate out of device memory in the full phase.
+// R = 4, one field), scattered over the index by the chunk starts.  Every
+// chunk starts at a multiple of 128 lanes and rec's rows are padded to a
+// multiple of 128 int32 (index/device.py), so a chunk's payload is one
+// 16-B-aligned run per record row: the full phase stages it into shared
+// memory with cp.async, up to three chunks ahead of the chunk being scored,
+// reads nothing for pad lanes and dead chunks, and skips rows that have no
+// live chunk.  The sort, doc totals and top-k then touch shared memory only
+// (an LSD radix sort of the live lanes, a one-pass radix select),
+// and the block's shared memory is sized to the class's L, so narrow classes
+// run several CTAs per SM.
 //
 // Semantics follow the JAX kernel exactly:
 //   score = scale * sum_f boost_f * (k1 + 1) tf / (tf + k1 (1 - b + b flen/avg))
@@ -34,15 +40,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_merge.cuh"
+
 namespace {
 
-constexpr int32_t kInvalidKey = 0x7fffffff;
-constexpr int kFullThreads = 512;
+using blockmerge::kInvalidKey;
 constexpr int kLanesThreads = 256;
 
 struct QueryArgs {
   const int32_t* rec;     // [R, rec_stride] transposed posting records
-  int64_t rec_stride;     // P + C
+  int64_t rec_stride;     // >= P + C; a multiple of 4 for the full phase
   const int32_t* c_start; // [B, NC] chunk start column in rec
   const int32_t* c_skip;  // [B, NC] payload begins at this lane of the chunk
   const int32_t* c_len;   // [B, NC] payload length (0: dead chunk)
@@ -50,204 +57,191 @@ struct QueryArgs {
   const float* c_scale;   // [B, NC] idf * expansion boost (host before_each)
   const float* scalars;   // [2F] field_avg, fields_boost
   int NC, C, F, k, qterm_bits, excl;
+  int ring;               // chunks of record rows staged at once (1 to 4)
+  int key_bits;           // every live key lies below 2^key_bits
+  uint64_t* cand;         // [B, cand_words(k)] top-k words in device memory, or null:
+                          // in shared memory
   float k1, b;
 };
 
-// Key and score of lane p of chunk t (flat [B, NC] table index).
-__device__ __forceinline__ void lane_key_score(const QueryArgs& a, int64_t t,
-                                               int skip, int len, int p,
-                                               int32_t& key, float& score) {
+// Key and score of lane p of a chunk whose payload is [skip, skip + len),
+// scale and query term `scale`, `qterm`; `r` points at record row 0 of the
+// lane, `s` is the record row stride, `scalars` = (field_avg, fields_boost).
+__device__ __forceinline__ void lane_key_score(const QueryArgs& a, float scale, int qterm,
+                                               const float* scalars, int skip, int len, int p,
+                                               const int32_t* r, int64_t s, int32_t& key,
+                                               float& score) {
   if (p < skip || p >= skip + len) {
     key = p < skip ? -1 : kInvalidKey;
     score = 0.0f;
     return;
   }
-  const int64_t s = a.rec_stride;
-  const int32_t* r = a.rec + (int64_t)a.c_start[t] + p;
   const int32_t doc = r[0];
   const int32_t alive = r[(int64_t)(1 + 2 * a.F) * s];
   float base = 0.0f;
   for (int f = 0; f < a.F; ++f) {
     const float tf = (float)r[(int64_t)(1 + f) * s];
     const float flen = __int_as_float(r[(int64_t)(1 + a.F + f) * s]);
-    const float avg = a.scalars[f];
-    const float boost = a.scalars[a.F + f];
+    const float avg = scalars[f];
+    const float boost = scalars[a.F + f];
     const float denom = a.k1 * ((1.0f - a.b) + a.b * (flen / avg)) + tf;
     const float tf_norm = tf > 0.0f ? ((a.k1 + 1.0f) * tf) / denom : 0.0f;
     base = f == 0 ? tf_norm * boost : base + tf_norm * boost;
   }
-  float sc = base * a.c_scale[t];
+  float sc = base * scale;
   if (a.excl) sc = sc > 0.0f ? sc : 0.0f;
   if (alive <= 0) sc = -INFINITY;
-  key = (doc << a.qterm_bits) | a.c_qterm[t];
+  key = (doc << a.qterm_bits) | qterm;
   score = sc;
 }
 
-__device__ __forceinline__ void compare_exchange(int32_t* ks, float* vs, int i, int j) {
-  const int32_t ki = ks[i], kj = ks[j];
-  if (ki > kj) {
-    ks[i] = kj;
-    ks[j] = ki;
-    const float v = vs[i];
-    vs[i] = vs[j];
-    vs[j] = v;
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// (value, lane) arg-max with ties to the lower lane.
-__device__ __forceinline__ void better(float& bv, int& bi, float v, int i) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v = __shfl_down_sync(0xffffffffu, bv, off);
-    const int i = __shfl_down_sync(0xffffffffu, bi, off);
-    better(bv, bi, v, i);
-  }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Full phase.  Dynamic shared memory: ks int32[L], vs f32[L], L = NC * C.
-__global__ void __launch_bounds__(kFullThreads)
-    fused_query_full_kernel(QueryArgs a, float* __restrict__ out_s,
-                            int32_t* __restrict__ out_d) {
-  extern __shared__ int32_t smem[];
-  __shared__ float red_v[kFullThreads / 32];
-  __shared__ int red_i[kFullThreads / 32];
-  __shared__ int done;
+// Full phase, one CTA of NT threads per query row.  Dynamic shared memory
+// (full_smem_bytes in ops/fused_query.py): ks int32[L], vs f32[L], L = NC *
+// C; a ring of a.ring chunks of the 2 + 2F record rows, int32[ring][R'][C];
+// the top-k words uint64[cand_words(k)] (none when a.cand holds them in
+// device memory, for k past fused_query.MAX_K); the row's chunk tables
+// (start, skip, len, qterm int32[NC], scale f32[NC]) and the 2F scalars,
+// loaded once so that no step of the chunk loop waits on device memory for
+// them.  CLOCK (tools/torch_stage_probe.py only) writes each block's cycles
+// per stage (gather, sort, totals, select, write) to clk[row][5].
+template <int NT, int MAXS, bool CLOCK>
+__device__ __forceinline__ void full_phase(const QueryArgs& a, float* __restrict__ out_s,
+                                           int32_t* __restrict__ out_d, long long* clk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ blockmerge::SelectSmem sel;
+  __shared__ blockmerge::RadixSmem<NT> rs;
+  long long stamp[6];
+  if (CLOCK) stamp[0] = clock64();
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
-  const int L = a.NC * a.C;
-  const int64_t t0 = (int64_t)row * a.NC;
-  int32_t* ks = smem;
-  float* vs = reinterpret_cast<float*>(smem + L);
+  const int C = a.C, NC = a.NC, L = NC * C, RR = 2 + 2 * a.F;
+  const int64_t t0 = (int64_t)row * NC;
+  const int kw = blockmerge::cand_words(a.k);
+  int32_t* ks = reinterpret_cast<int32_t*>(smem);
+  float* vs = reinterpret_cast<float*>(ks + L);
+  int32_t* ring = reinterpret_cast<int32_t*>(vs + L);
+  uint64_t* cand = reinterpret_cast<uint64_t*>(ring + a.ring * RR * C);
+  int32_t* c_start = reinterpret_cast<int32_t*>(a.cand ? cand : cand + kw);
+  if (a.cand) cand = a.cand + (int64_t)row * kw;
+  int32_t* c_skip = c_start + NC;
+  int32_t* c_len = c_skip + NC;
+  int32_t* c_qterm = c_len + NC;
+  float* c_scale = reinterpret_cast<float*>(c_qterm + NC);
+  float* scalars = c_scale + NC;
 
-  // Dead-row skip: a row with no live chunk (class padding) emits the empty
-  // sentinel and does no gather or merge.
+  // The row's tables; a row with no live chunk (class padding) emits the
+  // empty sentinel and does no gather or merge.
   int my_live = 0;
-  for (int c = tid; c < a.NC; c += blockDim.x) my_live |= a.c_len[t0 + c] > 0;
+  for (int c = tid; c < NC; c += NT) {
+    const int64_t t = t0 + c;
+    c_start[c] = a.c_start[t];
+    c_skip[c] = a.c_skip[t];
+    c_len[c] = a.c_len[t];
+    c_qterm[c] = a.c_qterm[t];
+    c_scale[c] = a.c_scale[t];
+    my_live |= c_len[c] > 0;
+  }
+  for (int f = tid; f < 2 * a.F; f += NT) scalars[f] = a.scalars[f];
   if (!__syncthreads_or(my_live)) {
-    for (int i = tid; i < a.k; i += blockDim.x) {
+    for (int i = tid; i < a.k; i += NT) {
       out_s[(int64_t)row * a.k + i] = -INFINITY;
       out_d[(int64_t)row * a.k + i] = -1;
     }
     return;
   }
 
-  // Gather + score into shared memory, chunk by chunk.
-  for (int c = 0; c < a.NC; ++c) {
-    const int64_t t = t0 + c;
-    const int skip = a.c_skip[t], len = a.c_len[t];
-    for (int p = tid; p < a.C; p += blockDim.x) {
+  // Gather: the 16-B segments of a chunk's payload, every record row, copied
+  // asynchronously into ring slot c % ring (nothing for a dead chunk); one
+  // commit group per chunk, ring - 1 chunks ahead of the one being scored.
+  auto issue = [&](int c) {
+    if (c < NC && c_len[c] > 0) {
+      const int skip = c_skip[c];
+      const int s0 = skip >> 2, ns = ((skip + c_len[c] + 3) >> 2) - s0;
+      const int32_t* src = a.rec + c_start[c];
+      int32_t* dst = ring + (c % a.ring) * RR * C;
+      for (int q = tid; q < RR * ns; q += NT) {
+        const int r = q / ns, sg = 4 * (s0 + q % ns);
+        cp_async16(dst + r * C + sg, src + r * a.rec_stride + sg);
+      }
+    }
+    cp_async_commit();
+  };
+  auto score_chunk = [&](int c) {
+    const int skip = c_skip[c], len = c_len[c], qterm = c_qterm[c];
+    const float scale = c_scale[c];
+    const int32_t* g = ring + (c % a.ring) * RR * C;
+    for (int p = tid; p < C; p += NT) {
       int32_t key;
       float score;
-      lane_key_score(a, t, skip, len, p, key, score);
-      ks[c * a.C + p] = key;
-      vs[c * a.C + p] = score;
+      lane_key_score(a, scale, qterm, scalars, skip, len, p, g + p, C, key, score);
+      ks[c * C + p] = key;
+      vs[c * C + p] = score;
     }
-  }
-  __syncthreads();
-
-  // Merge the NC ascending runs of C lanes (C a power of two): bitonic merge
-  // levels on a virtual power-of-two lane space whose tail [L, Lp) holds
-  // phantom +inf keys.  A pair whose high lane is a phantom never swaps, so
-  // skipping such pairs is exactly the virtual network on the real lanes.
-  int Lp = a.C;
-  while (Lp < L) Lp <<= 1;
-  const int half = Lp >> 1;
-  for (int m = a.C; m < Lp; m <<= 1) {
-    for (int t = tid; t < half; t += blockDim.x) {  // flip stage
-      const int base = (t & ~(m - 1)) << 1, o = t & (m - 1);
-      const int j = base + 2 * m - 1 - o;
-      if (j < L) compare_exchange(ks, vs, base + o, j);
-    }
+  };
+  if (a.ring >= NC) {  // every chunk in flight at once: one wait, one barrier
+    for (int c = 0; c < NC; ++c) issue(c);
+    cp_async_wait<0>();
     __syncthreads();
-    for (int d = m >> 1; d >= 1; d >>= 1) {  // half-cleaners
-      for (int t = tid; t < half; t += blockDim.x) {
-        const int i = ((t & ~(d - 1)) << 1) | (t & (d - 1));
-        if (i + d < L) compare_exchange(ks, vs, i, i + d);
-      }
+    for (int c = 0; c < NC; ++c) score_chunk(c);
+    __syncthreads();
+  } else {
+    for (int c = 0; c < a.ring - 1; ++c) issue(c);
+    for (int c = 0; c < NC; ++c) {
+      issue(c + a.ring - 1);
+      if (a.ring >= 4)
+        cp_async_wait<3>();
+      else if (a.ring == 3)
+        cp_async_wait<2>();
+      else if (a.ring == 2)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      score_chunk(c);
       __syncthreads();
     }
   }
+  if (CLOCK) stamp[1] = clock64();
 
-  // Per doc run of the sorted row: max over each (doc, qterm) key run, summed
-  // over the doc's runs in ascending qterm order.  The thread that owns a
-  // doc's tail lane owns the whole run (at most NC lanes: a doc appears at
-  // most once per chunk) and leaves the doc total on the tail lane, -inf on
-  // the others; pad lanes become -inf.  Runs are disjoint, so this is done in
-  // place without races.
-  const int qb = a.qterm_bits;
-  for (int i = tid; i < L; i += blockDim.x) {
-    const int32_t key = ks[i];
-    if (key < 0 || key == kInvalidKey) {
-      vs[i] = -INFINITY;
-      continue;
-    }
-    const int32_t doc = key >> qb;
-    if (i + 1 < L && (ks[i + 1] >> qb) == doc) continue;  // not the tail
-    int h = i;
-    while (h > 0 && (ks[h - 1] >> qb) == doc) --h;
-    float total = 0.0f;
-    int32_t run_key = ks[h];
-    float run_max = vs[h];
-    for (int j = h + 1; j <= i; ++j) {
-      const int32_t kj = ks[j];
-      const float vj = vs[j];
-      if (kj == run_key) {
-        run_max = fmaxf(run_max, vj);
-      } else {
-        total += run_max;
-        run_key = kj;
-        run_max = vj;
-      }
-      vs[j - 1] = -INFINITY;
-    }
-    total += run_max;
-    vs[i] = (!a.excl || total > 0.0f) ? total : -INFINITY;
+  // Sort the live lanes, total each doc on its tail lane, select the top k
+  // (block_merge.cuh).
+  const int n = blockmerge::block_radix_sort<NT, MAXS>(ks, vs, L, a.key_bits, rs);
+  if (CLOCK) stamp[2] = clock64();
+  const uint64_t top = blockmerge::block_doc_totals<NT>(ks, vs, n, a.qterm_bits, a.excl);
+  if (CLOCK) stamp[3] = clock64();
+  const int m = blockmerge::block_select<NT>(ks, vs, n, a.qterm_bits, a.k, top, cand, sel,
+                                             rs.words(), rs.kWords);
+  if (CLOCK) stamp[4] = clock64();
+  blockmerge::write_topk<NT>(cand, m, a.k, out_s + (int64_t)row * a.k,
+                             out_d + (int64_t)row * a.k);
+  if (CLOCK) {
+    __syncthreads();
+    stamp[5] = clock64();
+    if (tid == 0)
+      for (int q = 0; q < 5; ++q) clk[(int64_t)row * 5 + q] = stamp[q + 1] - stamp[q];
   }
-  __syncthreads();
+}
 
-  // Top-k: k rounds of a block arg-max (ties to the lowest lane, which is the
-  // lowest doc since lanes are key-sorted and each doc has one tail lane).
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int r = 0; r < a.k; ++r) {
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int i = tid; i < L; i += blockDim.x) better(bv, bi, vs[i], i);
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -INFINITY;
-      bi = lane < nwarps ? red_i[lane] : 0x7fffffff;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        const int64_t o = (int64_t)row * a.k + r;
-        if (bv > -INFINITY) {
-          out_s[o] = bv;
-          out_d[o] = ks[bi] >> qb;
-          vs[bi] = -INFINITY;
-          done = 0;
-        } else {
-          for (int q = r; q < a.k; ++q) {
-            out_s[(int64_t)row * a.k + q] = -INFINITY;
-            out_d[(int64_t)row * a.k + q] = -1;
-          }
-          done = 1;
-        }
-      }
-    }
-    __syncthreads();
-    if (done) break;
-  }
+template <int NT, int MAXS, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+    fused_query_full_kernel(QueryArgs a, float* __restrict__ out_s,
+                            int32_t* __restrict__ out_d) {
+  full_phase<NT, MAXS, false>(a, out_s, out_d, nullptr);
 }
 
 // Lanes phase: grid (NC, B), one chunk of one row per CTA.
@@ -256,12 +250,14 @@ __global__ void __launch_bounds__(kLanesThreads)
                              int32_t* __restrict__ out_k) {
   const int c = blockIdx.x, row = blockIdx.y;
   const int64_t t = (int64_t)row * a.NC + c;
-  const int skip = a.c_skip[t], len = a.c_len[t];
+  const int skip = a.c_skip[t], len = a.c_len[t], qterm = a.c_qterm[t];
+  const float scale = a.c_scale[t];
   const int64_t o = (int64_t)row * a.NC * a.C + (int64_t)c * a.C;
   for (int p = threadIdx.x; p < a.C; p += blockDim.x) {
     int32_t key;
     float score;
-    lane_key_score(a, t, skip, len, p, key, score);
+    lane_key_score(a, scale, qterm, a.scalars, skip, len, p,
+                   a.rec + (int64_t)a.c_start[t] + p, a.rec_stride, key, score);
     out_k[o + p] = key;
     out_s[o + p] = score;
   }
@@ -289,36 +285,81 @@ QueryArgs make_args(const int32_t* rec, long long rec_stride,
   a.excl = excl;
   a.k1 = k1;
   a.b = b;
+  a.ring = 1;
+  a.key_bits = 31;
+  a.cand = nullptr;
   return a;
 }
+
+// The full-phase variants by L: threads per block, lanes a thread holds in a
+// radix pass (ceil(L / threads)), and the blocks per SM the registers are
+// held to.  512 threads up to 8,192 lanes, so two or three blocks share an
+// SM and hide each other's barrier latency; 1,024 threads (one block an SM)
+// for the widest classes.
+#define FULL_VARIANTS(X) X(512, 4, 3) X(512, 8, 2) X(512, 16, 2) X(1024, 16, 1)
+
+template <int NT, int MAXS, int MINB>
+cudaError_t launch_full(const QueryArgs& a, int B, size_t smem, float* out_s, int32_t* out_d,
+                        cudaStream_t st) {
+  fused_query_full_kernel<NT, MAXS, MINB><<<B, NT, smem, st>>>(a, out_s, out_d);
+  return cudaGetLastError();
+}
+
+// Index of the variant for L lanes.
+int full_variant(int L) { return L <= 2048 ? 0 : L <= 4096 ? 1 : L <= 8192 ? 2 : 3; }
 
 }  // namespace
 
 extern "C" {
 
+// Once per device: lift the full phase's shared-memory cap to the card's
+// opt-in maximum; returns the dynamic bytes a block may use (< 0: error).
+int fused_query_init(int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return -1;
+  const int avail =
+      v - (int)(sizeof(blockmerge::SelectSmem) + sizeof(blockmerge::RadixSmem<1024>) + 64);
+#define ALLOW(NT, M, B)                                                                  \
+  if (cudaFuncSetAttribute(fused_query_full_kernel<NT, M, B>,                            \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, avail) != cudaSuccess) \
+    return -1;
+  FULL_VARIANTS(ALLOW)
+#undef ALLOW
+  return avail;
+}
+
 // Each entry launches on ``stream`` of CUDA device ``device`` and returns
 // cudaGetLastError() (0 = ok).  The device is set here because this library
 // carries its own CUDA runtime, whose current device the caller's runtime
-// does not set.
+// does not set.  ``ring`` and ``smem`` are the full phase's staging depth and
+// dynamic shared memory (full_launch), within what fused_query_init allowed;
+// ``cand`` is null, or [B, cand_words(k)] words of device memory for a k
+// whose words do not fit shared memory.
 int fused_query_full(int device, const int32_t* rec, long long rec_stride,
                      const int32_t* c_start, const int32_t* c_skip,
                      const int32_t* c_len, const int32_t* c_qterm,
-                     const float* c_scale, const float* scalars, int B, int NC,
+                     const float* c_scale, const float* scalars, int B_rows, int NC,
                      int C, int F, int k, int qterm_bits, float k1, float b,
-                     int excl, float* out_s, int32_t* out_d, void* stream) {
-  if (B == 0) return 0;
+                     int excl, int key_bits, int ring, long long smem, void* cand,
+                     float* out_s, int32_t* out_d, void* stream) {
+  if (B_rows == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)NC * C * (sizeof(int32_t) + sizeof(float));
-  e = cudaFuncSetAttribute(
-      fused_query_full_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
   if (e != cudaSuccess) return (int)e;
   QueryArgs a = make_args(rec, rec_stride, c_start, c_skip, c_len, c_qterm,
                           c_scale, scalars, NC, C, F, k, qterm_bits, k1, b, excl);
-  fused_query_full_kernel<<<B, kFullThreads, smem, (cudaStream_t)stream>>>(
-      a, out_s, out_d);
-  return (int)cudaGetLastError();
+  a.ring = ring;
+  a.key_bits = key_bits;
+  a.cand = (uint64_t*)cand;
+  cudaStream_t st = (cudaStream_t)stream;
+  int v = 0;
+  const int want = full_variant(NC * C);
+#define LAUNCH(NT, M, B) \
+  if (v++ == want) e = launch_full<NT, M, B>(a, B_rows, (size_t)smem, out_s, out_d, st);
+  FULL_VARIANTS(LAUNCH)
+#undef LAUNCH
+  return (int)e;
 }
 
 int fused_query_lanes(int device, const int32_t* rec, long long rec_stride,
@@ -341,7 +382,22 @@ const char* fused_query_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Largest dynamic shared memory one block of the full phase may use.
+// Resident full-phase blocks per SM at L lanes and `smem` bytes (-1: error).
+int fused_query_occupancy(int device, int L, long long smem) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  int n = -1, v = 0;
+  const int want = full_variant(L);
+#define OCC(NT, M, B)                                                                       \
+  if (v++ == want &&                                                                        \
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_query_full_kernel<NT, M, B>, NT, \
+                                                    (size_t)smem) != cudaSuccess)          \
+    n = -1;
+  FULL_VARIANTS(OCC)
+#undef OCC
+  return n;
+}
+
+// Largest dynamic shared memory one block may opt into (-1: error).
 int fused_query_max_smem(int device) {
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,

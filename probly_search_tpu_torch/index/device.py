@@ -20,7 +20,9 @@ posting's idf and term byte length from the aux record array
 (``DeviceIndex._aux_rec``) to build the per-lane scale.
 
 Posting record layout (transposed int32[R, P + C]; R = 4 for one field,
-else 2 + 2F rounded up to a multiple of 8), as in the JAX package:
+else 2 + 2F rounded up to a multiple of 8), as in the JAX package; on the
+device a view of a buffer whose rows are padded to a multiple of 128 int32,
+so that every chunk's slice of every row is 16-B aligned:
   rec[0]         doc slot, the true slot even for dead docs (runs stay sorted)
   rec[1:1+F]     per-field term frequency
   rec[1+F:1+2F]  per-field doc length, f32 bits
@@ -47,8 +49,8 @@ import torch
 
 from ..config import HostFallbackError
 from ..models.base import QueryResult
-from ..ops.fused_merge import merge_scores_topk_fused
-from ..ops.fused_query import fused_query_topk, gather_score
+from ..ops.fused_merge import KEY_BITS, key_bits_for, merge_scores_topk_fused
+from ..ops.fused_query import fused_query_topk, gather_score, padded_rows
 from ..ops.merge import INVALID_KEY
 from ..utils.metrics import metrics
 from ..utils.tokenizers import whitespace_tokenizer
@@ -172,7 +174,7 @@ def _range_scale(scorer, aux, jobs, take, c_start, c_scale, chunk: int):
 def _query_step(
     scorer, rec, field_avg, fields_boost, jobs_flat, aux=None,
     *, chunk: int, k: int, qterm_bits: int, num_fields: int, num_chunks: int,
-    use_ranges: bool = False,
+    use_ranges: bool = False, key_bits: int = KEY_BITS,
 ):
     """One shape class: ``jobs_flat`` int32[B, NJ * 3] -> top-k per row.
 
@@ -188,17 +190,17 @@ def _query_step(
         scalars = torch.cat([field_avg, fields_boost])
         kw = dict(chunk=C, k=k, qterm_bits=qterm_bits, num_fields=num_fields)
         if NC * C <= _FUSED_MAX_LANES:
-            return fused_query_topk(scorer, rec, *tables, scalars, **kw)
+            return fused_query_topk(scorer, rec, *tables, scalars, **kw, key_bits=key_bits)
         score_l, key_l = fused_query_topk(scorer, rec, *tables, scalars, **kw, phase="lanes")
         excl = bool(getattr(scorer, "device_excludes_nonpositive", False))
         return merge_scores_topk_fused(
-            key_l, score_l, k, qterm_bits, run=C, excl=excl, max_seg=NC
+            key_l, score_l, k, qterm_bits, run=C, excl=excl, max_seg=NC, key_bits=key_bits
         )
     key, score = staged_lanes(
         scorer, rec, field_avg, fields_boost, jobs_flat, aux, chunk=C,
         qterm_bits=qterm_bits, num_fields=num_fields, num_chunks=NC, use_ranges=use_ranges,
     )
-    return merge_scores_topk_fused(key, score, k, qterm_bits)
+    return merge_scores_topk_fused(key, score, k, qterm_bits, key_bits=key_bits)
 
 
 def staged_lanes(
@@ -234,6 +236,7 @@ def staged_lanes(
 def _window_step(
     scorer, rec, field_avg, fields_boost, words_flat, aux=None,
     *, chunk: int, k: int, qterm_bits: int, num_fields: int, class_specs, fmt: str = "f32",
+    key_bits: int = KEY_BITS,
 ):
     """Run every shape class of a window and pack the results.
 
@@ -241,7 +244,8 @@ def _window_step(
     table back to back; ``class_specs`` = ((b_pad, b_out, nj, nc, rng), ...),
     ``rng`` marking a term-range class (``aux`` goes to those only).  Only
     the first ``b_out`` rows of a class are computed (rows are independent;
-    the rest are padding).  Returns the packed rows of every class,
+    the rest are padding).  ``key_bits`` bounds the live merge keys (see
+    ``merge_scores_topk_fused``).  Returns the packed rows of every class,
     concatenated (see ``pack_result_rows``)."""
     outs = []
     off = 0
@@ -253,7 +257,7 @@ def _window_step(
         s, d = _query_step(
             scorer, rec, field_avg, fields_boost, jobs_flat, aux if rng else None,
             chunk=chunk, k=kk, qterm_bits=qterm_bits, num_fields=num_fields, num_chunks=nc,
-            use_ranges=rng,
+            use_ranges=rng, key_bits=key_bits,
         )
         if kk < k:
             s = torch.nn.functional.pad(s, (0, k - kk), value=float("-inf"))
@@ -501,7 +505,8 @@ class DeviceIndex:
             rec[1 : 1 + F, :P] = post_tf.T
             rec[1 + F : 1 + 2 * F, :P] = doc_len[post_doc].view(np.int32).T
             rec[1 + 2 * F, :P] = alive[post_doc]
-        self.rec = torch.from_numpy(rec).to(self.device)
+        self.rec = padded_rows(rec, self.device)
+        self._key_bits = key_bits_for(S, self._qterm_bits)
         self.field_avg = torch.from_numpy(
             np.array([fd.avg for fd in index._fields], dtype=np.float32)
         ).to(self.device)
@@ -565,7 +570,7 @@ class DeviceIndex:
                     np.asarray(self.seg_term_lens[si], np.int32), reps
                 )
                 pos += n
-        arr = torch.from_numpy(aux).to(self.device)
+        arr = padded_rows(aux, self.device)
         self._aux_cache[key] = arr
         return arr
 
@@ -1346,6 +1351,7 @@ class DeviceIndex:
                 num_fields=F,
                 class_specs=class_specs,
                 fmt=fmt,
+                key_bits=self._key_bits,
             )
         layout = []
         row = 0

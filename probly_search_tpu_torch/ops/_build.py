@@ -57,7 +57,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_query_full.argtypes = [
         i, p, ctypes.c_longlong, p, p, p, p, p, p,
-        i, i, i, i, i, i, f, f, i, p, p, p,
+        i, i, i, i, i, i, f, f, i, i, i, ctypes.c_longlong, p, p, p, p,
     ]
     lib.fused_query_full.restype = i
     lib.fused_query_lanes.argtypes = [
@@ -69,6 +69,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_query_error_string.restype = ctypes.c_char_p
     lib.fused_query_max_smem.argtypes = [i]
     lib.fused_query_max_smem.restype = i
+    lib.fused_query_init.argtypes = [i]
+    lib.fused_query_init.restype = i
+    lib.fused_query_occupancy.argtypes = [i, i, ctypes.c_longlong]
+    lib.fused_query_occupancy.restype = i
     lib.fused_z2o.argtypes = [
         i, p, ctypes.c_longlong, p, p, p, p, p, p, p,
         i, i, i, i, i, p, p, p,
@@ -76,10 +80,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_z2o.restype = i
     lib.fused_z2o_smem_bytes.argtypes = [i, i, i]
     lib.fused_z2o_smem_bytes.restype = ctypes.c_longlong
-    lib.merge_topk.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p, p]
+    lib.merge_topk.argtypes = [
+        i, p, p, i, i, i, i, i, i, i, ctypes.c_longlong, p, ctypes.c_longlong, p, p, p,
+    ]
     lib.merge_topk.restype = i
-    lib.merge_topk_workspace.argtypes = [i, i, i]
-    lib.merge_topk_workspace.restype = ctypes.c_longlong
+    lib.merge_topk_init.argtypes = [i]
+    lib.merge_topk_init.restype = i
     lib.probe_add.argtypes = [i, p, p, i, p]
     lib.probe_add.restype = i
     return lib

@@ -13,6 +13,7 @@ wrapper launches a kernel, never on the CPU path.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models.bm25 import BM25
@@ -21,10 +22,94 @@ from .merge import INVALID_KEY, merge_scores_topk_presorted
 
 launches = {"full": 0, "lanes": 0}
 
-# Shared memory the full phase keeps per lane (key int32 + score f32).
-_SMEM_BYTES_PER_LANE = 8
-# Static shared memory of the full-phase kernel, rounded up.
-_SMEM_STATIC = 1024
+# Most chunks of record rows the full phase stages in shared memory at once.
+MAX_RING = 4
+# Up to this many lanes the full phase runs 512-thread blocks, two to an SM:
+# their ring is kept small enough that two blocks fit an SM's shared memory
+# (228 KB; each block also holds about 12 KB of static shared memory).
+SHARED_SM_LANES = 8192
+_SM_SHARED = 233472
+_BLOCK_STATIC = 12 * 1024
+# Largest k whose top-k words the full phase keeps in shared memory; past
+# it they go to device scratch.
+MAX_K = 4096
+# Record rows are padded to a multiple of this many int32 (512 B), so every
+# 128-aligned chunk start is 16-B aligned in every row.
+ROW_ALIGN = 128
+
+
+def cand_words(k: int) -> int:
+    """Words of a row's top-k buffer (csrc/block_merge.cuh cand_words): the
+    next power of two of k, at least 32."""
+    return max(32, 1 << max(0, (k - 1).bit_length()))
+
+
+def full_smem_bytes(L: int, chunk: int, num_fields: int, k: int, ring: int) -> int:
+    """Dynamic shared memory of one full-phase block: key and score lanes
+    (8 B each), a ring of ``ring`` chunks of staged record rows, the top-k
+    words (up to ``MAX_K``; past it they sit in device scratch), the row's
+    chunk tables (20 B a chunk) and the 2F scalars."""
+    words = cand_words(k) if k <= MAX_K else 0
+    tables = 20 * (L // chunk) + 8 * num_fields
+    return 8 * L + 4 * ring * (2 + 2 * num_fields) * chunk + 8 * words + tables
+
+
+def full_launch(L: int, chunk: int, num_fields: int, k: int, avail: int):
+    """(ring, smem bytes) of a full-phase launch: the deepest ring up to
+    ``MAX_RING`` and the class's chunk count whose block fits ``avail``
+    bytes (up to ``SHARED_SM_LANES`` lanes, also two blocks to an SM); (0,
+    bytes of a ring of 1) when none fits."""
+    for ring in range(min(MAX_RING, max(L // chunk, 1)), 0, -1):
+        smem = full_smem_bytes(L, chunk, num_fields, k, ring)
+        two_fit = 2 * (smem + _BLOCK_STATIC) <= _SM_SHARED
+        if smem <= avail and (L > SHARED_SM_LANES or two_fit or ring == 1):
+            return ring, smem
+    return 0, full_smem_bytes(L, chunk, num_fields, k, 1)
+
+
+def padded_rows(a, device):
+    """Upload int32[R, W] ``a`` as a view of a buffer whose rows are padded
+    to a multiple of ``ROW_ALIGN`` int32: the result has shape (R, W), the
+    same values, ``stride(1) == 1`` and ``stride(0) % ROW_ALIGN == 0``."""
+    R, W = a.shape
+    buf = np.zeros((R, -(-max(W, 1) // ROW_ALIGN) * ROW_ALIGN), dtype=np.int32)
+    buf[:, :W] = a
+    return torch.from_numpy(buf).to(device)[:, :W]
+
+
+def check_rec(rec, num_fields: int, aligned: bool) -> None:
+    """Raise ValueError unless ``rec`` is an int32[R >= 2 + 2F, P + C] view
+    with unit column stride (``aligned``: rows 16-B aligned, as the full
+    phase's asynchronous copies need; ``padded_rows`` makes such a view)."""
+    F = num_fields
+    if rec.dtype != torch.int32:
+        raise ValueError(f"rec has dtype {rec.dtype}, expected torch.int32")
+    if rec.dim() != 2 or rec.shape[0] < 2 + 2 * F:
+        raise ValueError(f"rec must be int32[R >= {2 + 2 * F}, P + C], got {tuple(rec.shape)}")
+    if rec.stride(1) != 1 or rec.stride(0) < rec.shape[1]:
+        raise ValueError(f"rec needs unit column stride and whole rows, got strides {rec.stride()}")
+    if aligned and (rec.stride(0) % 4 or rec.data_ptr() % 16):
+        raise ValueError(
+            f"rec rows must be 16-B aligned (row stride {rec.stride(0)} int32): "
+            "build it with padded_rows"
+        )
+
+
+_smem: dict = {}
+
+
+def device_smem(index: int):
+    """(opt-in shared memory per block, what the full phase may use) of CUDA
+    device ``index``, read once; the first call also lifts the full phase's
+    shared-memory cap."""
+    got = _smem.get(index)
+    if got is None:
+        lib = _build.load()
+        avail = lib.fused_query_init(index)
+        if avail < 0:
+            raise RuntimeError(f"fused_query_init failed on cuda:{index}")
+        got = _smem[index] = (lib.fused_query_max_smem(index), avail)
+    return got
 
 
 def _kernel_scores(scorer) -> bool:
@@ -70,13 +155,17 @@ def gather_score(
 def fused_query_topk_reference(
     scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars,
     *, chunk: int, k: int, qterm_bits: int, num_fields: int, phase: str = "full",
+    key_bits: int = 31,
 ):
     """Plain torch version of ``fused_query_topk`` on any device.
 
     Phase "full" returns (scores f32[B, k], docs int32[B, k]); phase "lanes"
     returns (score f32[B, L], key int32[B, L]), L = NC * chunk, with the
     kernel's key layout: doc-sorted payload keys, -1 leading pads,
-    INVALID_KEY trailing pads, -inf scores on latently dead docs."""
+    INVALID_KEY trailing pads, -inf scores on latently dead docs.
+    ``key_bits`` only bounds the kernel's sort; the result does not depend
+    on it."""
+    del key_bits
     B, NC = c_start.shape
     score, doc, pos, in_pay, alive = gather_score(
         scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale[..., None], scalars, chunk,
@@ -116,6 +205,7 @@ def _check(name, t, dtype, shape, device):
 def fused_query_topk(
     scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars,
     *, chunk: int, k: int, qterm_bits: int, num_fields: int, phase: str = "full",
+    key_bits: int = 31,
 ):
     """Run the fused query over one shape class.
 
@@ -123,7 +213,9 @@ def fused_query_topk(
     chunk tables are [B, NC] (int32, ``c_scale`` f32); ``scalars`` is
     f32[2F] (or [1, 2F]) = (field_avg, fields_boost).  Returns what
     ``fused_query_topk_reference`` returns, computed by the CUDA kernel when
-    the tensors are on a CUDA device."""
+    the tensors are on a CUDA device.  ``key_bits``: every live key ``doc <<
+    qterm_bits | qterm`` lies below ``2**key_bits`` (the full phase sorts
+    only those bits; the plain version ignores it)."""
     if rec.device.type == "cpu":
         return fused_query_topk_reference(
             scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars,
@@ -142,9 +234,7 @@ def fused_query_topk(
     B, NC = c_start.shape
     C, F = chunk, num_fields
     dev = rec.device
-    _check("rec", rec, torch.int32, None, dev)
-    if rec.dim() != 2 or rec.shape[0] < 2 + 2 * F:
-        raise ValueError(f"rec must be int32[R >= {2 + 2 * F}, P + C], got {tuple(rec.shape)}")
+    check_rec(rec, F, aligned=phase == "full")
     tables = {"c_start": c_start, "c_skip": c_skip, "c_len": c_len, "c_qterm": c_qterm}
     for name, t in tables.items():
         _check(name, t, torch.int32, (B, NC), dev)
@@ -168,14 +258,22 @@ def fused_query_topk(
     if phase == "full":
         if not 0 < k <= L:
             raise ValueError(f"k must lie in [1, {L}], got {k}")
-        smem_max = lib.fused_query_max_smem(index)
-        if L * _SMEM_BYTES_PER_LANE > smem_max - _SMEM_STATIC:
-            raise ValueError(f"{L} lanes exceed one block's shared memory ({smem_max} B)")
+        if C < 4:
+            raise ValueError(f"the full phase needs a chunk width of at least 4, got {C}")
+        if not 1 <= key_bits <= 31:
+            raise ValueError(f"key_bits must lie in [1, 31], got {key_bits}")
+        ring, smem = full_launch(L, C, F, k, device_smem(index)[1])
+        if not ring:
+            raise ValueError(f"{L} lanes exceed one block's shared memory ({smem} B)")
         out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
         out_d = torch.empty((B, k), dtype=torch.int32, device=dev)
+        cand = None
+        if k > MAX_K:
+            cand = torch.empty((B, cand_words(k)), dtype=torch.int64, device=dev)
         err = lib.fused_query_full(
-            *common, k, qterm_bits, float(scorer.bm25k1), float(scorer.bm25b), excl,
-            out_s.data_ptr(), out_d.data_ptr(), stream,
+            *common, k, qterm_bits, float(scorer.bm25k1), float(scorer.bm25b), excl, key_bits, ring,
+            smem, None if cand is None else cand.data_ptr(), out_s.data_ptr(), out_d.data_ptr(),
+            stream,
         )
     else:
         out_s = torch.empty((B, L), dtype=torch.float32, device=dev)

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_query import _check
+from .fused_query import _check, check_rec, device_smem
 from .merge import _shift_left, _shift_right, segmented_scan
 
 launches = {"fused_z2o": 0}
@@ -155,9 +155,7 @@ def fused_z2o_topk(
     C, F = chunk, num_fields
     L = NC * C
     dev = rec.device
-    _check("rec", rec, torch.int32, None, dev)
-    if rec.dim() != 2 or rec.shape[0] < 2 + 2 * F:
-        raise ValueError(f"rec must be int32[R >= {2 + 2 * F}, P + C], got {tuple(rec.shape)}")
+    check_rec(rec, F, aligned=False)
     for name, t in (("c_start", c_start), ("c_skip", c_skip), ("c_len", c_len),
                     ("c_qterm", c_qterm), ("c_rank", c_rank)):
         _check(name, t, torch.int32, (B, NC), dev)
@@ -173,7 +171,7 @@ def fused_z2o_topk(
         raise ValueError(f"the lane index packs into 14 bits; {L} lanes do not fit")
     lib = _build.load()
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    smem_max = lib.fused_query_max_smem(index)
+    smem_max = device_smem(index)[0]
     if lib.fused_z2o_smem_bytes(NC, C, F) > smem_max - _SMEM_STATIC:
         raise ValueError(f"{L} lanes x {F} fields exceed one block's shared memory ({smem_max} B)")
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)

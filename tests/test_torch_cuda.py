@@ -19,11 +19,14 @@ from probly_search_tpu_torch import bm25, zero_to_one
 from probly_search_tpu_torch.index import device as pdev
 from probly_search_tpu_torch.ops import fused_merge as fm
 from probly_search_tpu_torch.ops import fused_query as fq
+from probly_search_tpu_torch.ops.fused_query import padded_rows
 from probly_search_tpu_torch.ops import fused_z2o as fz
 from probly_search_tpu_torch.ops import launch_probe as lp
 from probly_search_tpu_torch.testing import assert_topk_agree
 
-from .torch_util import QB, make_rec, make_tables, make_z2o_tables, merge_rows, to_torch
+from .torch_util import (
+    QB, make_rec, make_tables, make_z2o_tables, merge_edge_rows, merge_rows, to_torch,
+)
 
 
 @pytest.mark.cuda
@@ -35,7 +38,7 @@ def test_kernel_matches_plain_on_cuda(F, C, NC):
     rng = np.random.default_rng(C + NC + F)
     rec, starts, lens = make_rec(rng, F=F, n_docs=3000, n_terms=400, C=C)
     tables = to_torch(make_tables(rng, starts, lens, 64, NC, C=C), "cuda")
-    rec_t = torch.from_numpy(rec).cuda()
+    rec_t = padded_rows(rec, "cuda")
     scalars = torch.tensor([6.5, 3.0][:F] + [1.5, 0.5][:F], dtype=torch.float32, device="cuda")
     phase = "full" if NC * C <= pdev._FUSED_MAX_LANES else "lanes"
     kw = dict(chunk=C, k=10, qterm_bits=QB, num_fields=F, phase=phase)
@@ -54,6 +57,26 @@ def test_kernel_matches_plain_on_cuda(F, C, NC):
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NC,k", [(6, 4097), (8, 5000), (16, 16384)])
+def test_kernel_large_k_on_cuda(NC, k):
+    """K1's full phase with k past what its shared memory holds (the top-k
+    words in device scratch), up to k = L, against the plain version."""
+    _cuda()
+    rng = np.random.default_rng(NC + k)
+    rec, starts, lens = make_rec(rng, n_docs=30_000, n_terms=400, C=1024)
+    tables = to_torch(make_tables(rng, starts, lens, 16, NC, C=1024), "cuda")
+    scalars = torch.tensor([6.5, 1.5], dtype=torch.float32, device="cuda")
+    kw = dict(chunk=1024, k=k, qterm_bits=QB, num_fields=1)
+    rec_t = padded_rows(rec, "cuda")
+    ks, kd = fq.fused_query_topk(bm25.new(), rec_t, *tables, scalars, **kw)
+    ks2, kd2 = fq.fused_query_topk(bm25.new(), rec_t, *tables, scalars, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    ps, pd = fq.fused_query_topk_reference(bm25.new(), rec_t, *tables, scalars, **kw)
+    assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -99,6 +122,29 @@ def test_serving_on_cuda_matches_cpu():
 
 
 @pytest.mark.cuda
+def test_serving_large_top_k_on_cuda_matches_cpu():
+    """top_k past the fused kernel's shared-memory top-k buffer (5,000 over
+    classes of 6-9 chunks of 1,024 lanes) on the card against the CPU."""
+    _cuda()
+    import random
+
+    from probly_search_tpu_torch import Index
+
+    rng = random.Random(5)
+    vocab = ["w%03d" % i for i in range(300)]
+    ix = Index(1)
+    texts = [" ".join(["hot0", "hot1", "hot2"] + rng.sample(vocab, rng.randint(1, 6)))
+             for _ in range(2500)]
+    ix.add_documents_columnar(list(range(2500)), [texts])
+    window = ["hot0 hot1 hot2", "hot0 w001", "hot1"]
+    got = pdev.DeviceIndex(ix, device="cuda").query_batch_async(window, bm25.new(), top_k=5000)
+    want = pdev.DeviceIndex(ix, device="cpu").query_batch_async(window, bm25.new(), top_k=5000)
+    got, want = got.get_arrays(), want.get_arrays()
+    assert_topk_agree(got[0], got[1], want[0], want[1])
+    assert (got[1][0] >= 0).sum() == 2500
+
+
+@pytest.mark.cuda
 def test_cuda_rejects_other_scorers():
     _cuda()
     rng = np.random.default_rng(0)
@@ -121,7 +167,7 @@ def test_z2o_kernel_matches_plain_on_cuda(C, NC, F):
     rng = np.random.default_rng(C + NC + F)
     rec, starts, lens = make_rec(rng, F=F, n_docs=3000, n_terms=400, C=C)
     tables = to_torch(make_z2o_tables(rng, starts, lens, 64, NC, C=C), "cuda")
-    rec_t = torch.from_numpy(rec).cuda()
+    rec_t = padded_rows(rec, "cuda")  # the DeviceIndex layout
     kw = dict(chunk=C, k=10, num_fields=F)
     before = fz.launches["fused_z2o"]
     ks, kd = fz.fused_z2o_topk(rec_t, *tables, **kw)
@@ -191,6 +237,56 @@ def test_merge_kernel_matches_plain_on_cuda(B, n_runs, run, excl, k):
     ps, pd = fm.merge_scores_topk_fused_reference(kt, vt, k, QB, run=run, excl=excl)
     assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
     assert (kd >= 0).any()
+
+
+def _edge_len(L):
+    """Lane counts at the K5 paths' edge: the block cap and one past it."""
+    if isinstance(L, int):
+        return L
+    return fm.TILE_LANES + 1 if L.endswith("+1") else fm.TILE_LANES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,B,L,k,key_bits",
+    [
+        ("random", 1, 1, 1, 31),
+        ("random", 2, "block", 10, 31),
+        ("random", 2, "block+1", 128, 31),
+        ("random", 1, 32768, 10, 31),
+        ("random", 1, 32769, 128, 24),
+        ("random", 1, 300_000, 300, 31),
+        ("ties", 2, 4096, 10, 31),
+        ("ties", 1, 40_000, 128, 31),
+        ("ties", 1, 600_000, 128, 31),
+        ("pads", 2, 3000, 10, 31),
+        ("pads", 1, 600_000, 10, 31),
+        ("one", 2, 5000, 10, 31),
+        ("one", 1, 50_000, 10, 31),
+        ("few", 2, 600_000, 10, 24),
+        ("high", 2, 20_000, 128, 31),
+        ("high", 1, 600_000, 10, 31),
+    ],
+)
+def test_merge_kernel_edges_on_cuda(kind, B, L, k, key_bits):
+    """K5 at its paths' edges against the plain version, repeat runs
+    bit-equal, one launch counted per call."""
+    _cuda()
+    L = _edge_len(L)
+    rng = np.random.default_rng(L + k)
+    key, val = merge_edge_rows(rng, kind, B, L)
+    if key_bits < 31:
+        assert int(key.max(where=key != 2**31 - 1, initial=0)) < 1 << key_bits
+    kt, vt = to_torch([key, val], "cuda")
+    before = fm.launches["merge_topk"]
+    ks, kd = fm.merge_scores_topk_fused(kt, vt, k, QB, key_bits=key_bits)
+    ks2, kd2 = fm.merge_scores_topk_fused(kt, vt, k, QB, key_bits=key_bits)
+    torch.cuda.synchronize()
+    assert fm.launches["merge_topk"] == before + 2
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    ps, pd = fm.merge_scores_topk_fused_reference(kt, vt, k, QB)
+    assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
+    assert bool((kd >= 0).any()) == (kind != "pads")
 
 
 @pytest.mark.cuda

@@ -24,7 +24,7 @@ from probly_search_tpu_torch.ops import fused_merge as fm
 from probly_search_tpu_torch.ops.merge import INVALID_KEY, merge_scores_topk_presorted
 from probly_search_tpu_torch.testing import assert_topk_agree
 
-from .torch_util import QB, merge_rows
+from .torch_util import QB, merge_edge_rows, merge_rows
 
 
 def _pallas(key, val, k, run, excl, max_seg):
@@ -95,3 +95,77 @@ def test_wrapper_rejects_other_devices():
     x = torch.zeros((1, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fm.merge_scores_topk_fused(x, x.float(), 4, QB)
+
+
+# The H100's opt-in shared memory per block less the block kernel's static part.
+_SMEM = 232448 - 12 * 1024
+
+
+@pytest.mark.parametrize(
+    "B,L,k,run,key_bits,smem,path",
+    [
+        (1, 1, 1, 0, 31, _SMEM, "block"),
+        (24, 16384, 10, 1024, 24, _SMEM, "block"),
+        (2, 16384, 4096, 0, 31, _SMEM, "block"),
+        (2, 16385, 10, 0, 31, _SMEM, "radix"),  # one past the block cap
+        (24, 24576, 10, 1024, 24, _SMEM, "radix"),  # phase 3's lanes class
+        (1, 2 * 16384, 256, 0, 24, _SMEM, "radix"),
+        (1, 2 * 16384 + 1, 10, 0, 24, _SMEM, "radix"),
+        (1, 49152, 128, 0, 24, _SMEM, "radix"),
+        (1, 12000, 10, 0, 31, 100_000, "block"),  # a card with less shared memory
+        (1, 16384, 10, 0, 31, 100_000, "radix"),
+        (1, 20000, 257, 0, 31, _SMEM, "radix"),
+        (1, 1 << 23, 128, 0, 24, _SMEM, "radix"),
+    ],
+)
+def test_merge_plan(B, L, k, run, key_bits, smem, path):
+    fm.check_merge_args(B, L, k, run, key_bits)  # run and key_bits do not enter the plan
+    p = fm.merge_plan(B, L, k, smem)
+    assert p.path == path
+    kpad = 1 << (k - 1).bit_length()
+    if path == "block":
+        assert p.smem == 8 * L + 8 * max(32, kpad) <= smem and p.ws_bytes == 0
+    else:
+        assert p.smem == 8 * kpad
+        assert p.ws_bytes >= 2 * 8 * B * L + 8 * B * L + 8 * B * kpad
+
+
+@pytest.mark.parametrize(
+    "B,L,k,run,key_bits,ok",
+    [
+        (1, 10, 10, 0, 31, True),
+        (1, 10, 11, 0, 31, False),
+        (1, 8192, 4097, 0, 31, False),
+        (1, 10, 0, 0, 31, False),
+        (1, 10, 5, 3, 31, False),
+        (1, 10, 5, 0, 0, False),
+        (1, 10, 5, 0, 32, False),
+        (1, 10, 5, 1024, 24, True),
+        (65536, 10, 5, 0, 31, False),
+    ],
+)
+def test_check_merge_args(B, L, k, run, key_bits, ok):
+    if ok:
+        fm.check_merge_args(B, L, k, run, key_bits)
+    else:
+        with pytest.raises(ValueError):
+            fm.check_merge_args(B, L, k, run, key_bits)
+
+
+@pytest.mark.parametrize("num_slots,bits", [(1, 4), (16, 8), (17, 9), (1_000_000, 24), (1 << 27, 31)])
+def test_key_bits_for(num_slots, bits):
+    assert fm.key_bits_for(num_slots, QB) == bits
+
+
+@pytest.mark.parametrize("kind", ["high", "ties", "one", "few", "pads"])
+def test_edge_rows_match_pallas(kind):
+    """Keys that use all 31 bits, all totals equal, one or five live lanes,
+    all pads: the plain merge against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(len(kind))
+    key, val = merge_edge_rows(rng, kind, 4, 256)
+    if kind == "high":
+        assert key[key != INVALID_KEY].max() >= 2**30
+    js, jd = _pallas(key, val, 10, 0, False, 0)
+    ps, pd = fm.merge_scores_topk_fused_reference(torch.from_numpy(key), torch.from_numpy(val), 10, QB)
+    assert_topk_agree(ps.numpy(), pd.numpy(), js, jd)
+    assert bool((pd >= 0).any()) == (kind != "pads")

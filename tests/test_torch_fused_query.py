@@ -168,3 +168,66 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch, phase):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert fq.launches == {"full": 0, "lanes": 0}
+
+
+def _rec(shape, device="cpu"):
+    return torch.arange(shape[0] * shape[1], dtype=torch.int32).reshape(shape).to(device)
+
+
+def test_padded_rows_keep_shape_and_values():
+    a = np.arange(4 * 1001, dtype=np.int32).reshape(4, 1001)
+    r = fq.padded_rows(a, "cpu")
+    assert tuple(r.shape) == (4, 1001) and r.stride() == (1024, 1)
+    np.testing.assert_array_equal(r.numpy(), a)
+    fq.check_rec(r, 1, aligned=True)
+
+
+@pytest.mark.parametrize(
+    "make,aligned,ok",
+    [
+        (lambda: fq.padded_rows(np.zeros((4, 1001), np.int32), "cpu"), True, True),
+        (lambda: fq.padded_rows(np.zeros((8, 300), np.int32), "cpu"), True, True),
+        (lambda: _rec((4, 1000)), True, True),  # contiguous, 16-B rows
+        (lambda: _rec((4, 1001)), True, False),  # rows not 16-B aligned
+        (lambda: _rec((4, 1001)), False, True),  # K3 / K4 read any row stride
+        (lambda: _rec((1001, 4)).t(), False, False),  # column stride != 1
+        (lambda: _rec((4, 2048))[:, ::2], False, False),
+        (lambda: _rec((4, 64)).to(torch.int64), False, False),
+        (lambda: _rec((3, 64)), False, False),  # too few record rows
+    ],
+)
+def test_check_rec(make, aligned, ok):
+    rec = make()
+    if ok:
+        fq.check_rec(rec, 1, aligned=aligned)
+    else:
+        with pytest.raises(ValueError):
+            fq.check_rec(rec, 1, aligned=aligned)
+
+
+@pytest.mark.parametrize(
+    "L,C,F,k,avail,ring",
+    [
+        (16384, 1024, 1, 10, 231328, 4),  # the widest one-field class: the full ring
+        (16384, 1024, 4, 10, 231328, 2),  # four fields: a shallower ring fits
+        (16384, 1024, 8, 10, 231328, 1),
+        (16384, 1024, 16, 10, 231328, 0),  # nothing fits: the wrapper raises
+        (2048, 1024, 1, 4096, 231328, 2),  # no deeper than the class's 2 chunks
+        (4096, 1024, 1, 10, 231328, 4),  # two such blocks still fit an SM
+        (8192, 1024, 1, 10, 231328, 2),  # a deeper ring would keep one block an SM
+        (384, 128, 2, 64, 48 * 1024, 3),
+        (16384, 1024, 1, 16384, 231328, 4),  # k = L: the words in device scratch
+        (8192, 1024, 1, 4097, 231328, 2),
+    ],
+)
+def test_full_launch_sizes_shared_memory(L, C, F, k, avail, ring):
+    got_ring, smem = fq.full_launch(L, C, F, k, avail)
+    assert got_ring == ring
+    words = fq.cand_words(k) if k <= fq.MAX_K else 0
+    assert smem == 8 * L + 4 * max(ring, 1) * (2 + 2 * F) * C + 8 * words + 20 * (L // C) + 8 * F
+    assert (smem <= avail) == (ring > 0)
+
+
+@pytest.mark.parametrize("k,words", [(1, 32), (10, 32), (32, 32), (33, 64), (128, 128), (5000, 8192)])
+def test_cand_words(k, words):
+    assert fq.cand_words(k) == words

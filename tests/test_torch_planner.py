@@ -76,6 +76,17 @@ def test_snapshot_arrays(engines):
     assert (p.num_postings, p.num_slots, p.CHUNK) == (j.num_postings, j.num_slots, j.CHUNK)
 
 
+def test_rec_rows_padded_and_equal_to_jax(engines):
+    """The port keeps rec and the aux record array as views of buffers
+    whose rows are padded to 128 int32 (16-B aligned chunk slices for the
+    fused kernel's asynchronous copies): same shape and values as JAX's."""
+    _ix, _q, p, j = engines
+    for got, want in ((p.rec, j.rec), (p._aux_rec(bm25.new()), j._aux_rec(jbm25.new()))):
+        assert tuple(got.shape) == tuple(np.shape(want))
+        assert got.stride(1) == 1 and got.stride(0) % 128 == 0 and got.stride(0) >= got.shape[1]
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def _plans(engines, queries):
     _ix, _q, p, j = engines
     pp, pfb = p.plan_batch(queries, tokenizer, bm25.new())

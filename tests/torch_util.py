@@ -100,3 +100,36 @@ def merge_rows(rng, rows, n_runs, run, excl, presorted, n_docs=200):
         val[r, live & np.isin(key[r] >> QB, dead)] = -np.inf
         val[r, ~live] = 0.0
     return key, val
+
+
+def merge_edge_rows(rng, kind, rows, L):
+    """Unsorted rows (run = 0) of the merge kernel's edge cases, key int32 /
+    score f32 [rows, L]:
+
+      "random"  docs over L / 8 slots and 4 query terms, 15% INT32_MAX pads,
+                scores from four values (equal totals happen)
+      "ties"    every live doc totals 1.0 (one query term, score 1.0)
+      "pads"    every lane a pad
+      "one"     one live lane
+      "few"     five live lanes (k above the live docs)
+      "high"    docs just below 2^(31 - QB) - 1: keys use all 31 bits"""
+    inv = np.int32(2**31 - 1)
+    key = np.full((rows, L), inv, np.int32)
+    val = rng.choice(np.array([0.5, 1.0, 1.5, 2.25], np.float32), (rows, L))
+    if kind in ("random", "ties", "high"):
+        top = (1 << (31 - QB)) - 2
+        lo = top - max(L // 8, 1) if kind == "high" else 0
+        hi = top if kind == "high" else max(L // 8, 1)
+        docs = rng.integers(lo, hi + (kind == "high"), (rows, L))
+        qt = 0 if kind == "ties" else rng.integers(0, 1 << QB if kind == "high" else 4, (rows, L))
+        key = ((docs << QB) | qt).astype(np.int32)
+        key[rng.random((rows, L)) < 0.15] = inv
+        if kind == "ties":
+            val[:] = 1.0
+    elif kind in ("one", "few"):
+        for r in range(rows):
+            lanes = rng.choice(L, size=min(L, 1 if kind == "one" else 5), replace=False)
+            key[r, lanes] = (rng.integers(0, 1000, len(lanes)) << QB).astype(np.int32)
+    elif kind != "pads":
+        raise ValueError(kind)
+    return key, val

@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Host cost per call of the port's merge kernel wrapper (K5) and of the
+launch probe (P1), on one CUDA card.
+
+    python3 tools/torch_host_cost.py [--root DIR] [--calls N] [--rounds R]
+
+Imports ``probly_search_tpu_torch`` from DIR (default: this checkout), so two
+checkouts can be compared on one card in one run, in turns
+(parent, change, change, parent).  For each of R rounds it enqueues N calls
+without synchronising and reads the host clock (the enqueue cost: what a
+call holds the host), then synchronises (host clock to drained).  K5 runs on
+B = 2 rows of 3,072 unsorted lanes, k = 10 (a small term-range class); P1 on
+its f32[8, 512].  Prints the card's name and power limit, then one JSON line
+of medians in microseconds per call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--calls", type=int, default=200)
+    ap.add_argument("--rounds", type=int, default=15)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    from probly_search_tpu_torch.ops import fused_merge as fm
+    from probly_search_tpu_torch.ops import launch_probe as lp
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_host_cost: no CUDA device is available")
+    assert fm.__file__.startswith(root), fm.__file__
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    rng = np.random.default_rng(0)
+    L = 3072
+    key = ((rng.integers(0, L // 8, (2, L)) << 4) | rng.integers(0, 4, (2, L))).astype(np.int32)
+    key[rng.random((2, L)) < 0.15] = 2**31 - 1
+    key = torch.from_numpy(key).cuda()
+    score = torch.from_numpy(rng.uniform(0.5, 2.0, (2, L)).astype(np.float32)).cuda()
+    x = torch.zeros(lp.SHAPE, device="cuda")
+    calls = {
+        "merge": lambda: fm.merge_scores_topk_fused(key, score, 10, 4),
+        "probe": lambda: lp.probe_add(x),
+        "torch_add": lambda: torch.add(x, 1.0),
+    }
+    out = {"root": root}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        enq, total = [], []
+        for _ in range(args.rounds):
+            t = time.perf_counter()
+            for _ in range(args.calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            enq.append(1e6 * (t1 - t) / args.calls)
+            total.append(1e6 * (t2 - t) / args.calls)
+        out[f"{name}_enqueue_us"] = float(np.median(enq))
+        out[f"{name}_drained_us"] = float(np.median(total))
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()
