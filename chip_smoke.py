@@ -10,9 +10,15 @@ Phases (any failure raises, so the exit code is not 0):
      tables (C = 1024, B = 1024; phase "full" at NC 2..16, phase "lanes" at
      NC 24 and 32; k 10 and 128; phase "full" also at k 5,000 and k = L,
      past its shared-memory top-k buffer), with bit-equal repeat runs and
-     CUDA-event times;
+     CUDA-event times (phase "lanes" also its device time: one call
+     captured in a CUDA graph, the replay timed with the L2 cold);
   2z. the zero-to-one kernel (K4) the same way: C = 1024, B = 1024,
-     NC 2, 3, 4, 6, 8, F 1, 2, 4, k 10 and 128;
+     NC 2, 3, 4, 6, 8, F 1, 2, 4, k 10 and 128, CUDA-event and device
+     times; then its edges (tests/torch_util.z2o_edge: k = L = 8,192 with
+     four fields, one live lane, a row of dead docs, alive docs with only
+     tf 0, equal contributions, doc slots near 2^26, C = 128 over 64
+     chunks), each with its kernels per call from a CUDA graph capture
+     (exactly 1);
   2m. the standalone merge kernel (K5) against its plain version on seeded
      rows: run 0 (full sort) at B 1 and 2, L 2,048 .. 2^23 (3,072, 24,576
      and 3 * 2^20 not powers of two); run 1,024 at B 24, L 24,576 and
@@ -31,7 +37,7 @@ Phases (any failure raises, so the exit code is not 0):
      and paired late drains; launch counts, ms/window, QPS, recall@10
      against the f64 oracle on 256 queries, and every class of the first
      window held kernel against plain on its real tables (K1; K3 and K5 on
-     the wide classes);
+     the wide classes; K3's device time beside its CUDA-event time);
   3r. term-range jobs on that index: phase 3's first window with every 64th
      query's first term cut to its first four characters (a prefix of 100
      terms) and the last three queries replaced by t0, t00 and t1, served
@@ -52,7 +58,8 @@ Phases (any failure raises, so the exit code is not 0):
      paired late drains; launch counts of the kernel and the torch programs,
      ms/window, QPS, recall@10 against the f64 oracle on 256 queries, every
      kernel class of one window held kernel against plain on its real
-     tables, and a torch.profiler breakdown of one window.
+     tables (CUDA-event and device times), and a torch.profiler breakdown
+     of one window.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits
 with an error before printing any result.
@@ -85,7 +92,7 @@ from probly_search_tpu_torch.ops import launch_probe as lp  # noqa: E402
 from probly_search_tpu_torch.ops import z2o_device as pz  # noqa: E402
 from probly_search_tpu_torch.ops.fused_query import padded_rows  # noqa: E402
 from probly_search_tpu_torch.testing import ATOL, RTOL, assert_topk_agree  # noqa: E402
-from tests.torch_util import merge_edge_rows  # noqa: E402
+from tests.torch_util import Z2O_EDGES, Z2O_ROW0_EDGES, merge_edge_rows, z2o_edge  # noqa: E402
 
 SEED = 0
 C = 1024
@@ -111,6 +118,7 @@ FULL_LARGE_K = ((8, 5000), (16, 16384))
 PROBE_CHAINS = (1, 4, 16)
 INT32_MAX = 2**31 - 1
 SYN_KEY_BITS = fm.key_bits_for(20_000, QB)  # synthetic_rec's docs
+SYN_Z2O_KEY_BITS = fm.key_bits_for(20_000, fz.DOC_SHIFT)
 N_DOCS = 1_000_000
 WINDOW = 16384
 TOK = pdev.whitespace_tokenizer
@@ -165,6 +173,34 @@ def cuda_ms(fn, reps: int = 10) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with a cold L2: the call captured
+    into a CUDA graph, and before each replay a write of four times the
+    card's L2 evicts what earlier replays left there; the replay alone is
+    timed with CUDA events (median of ``reps``).  The write is queued
+    first, so the host's launch of the replay hides behind it."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    flush = torch.empty(l2, dtype=torch.int32, device="cuda")
+    g.replay()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    g.reset()
+    del flush
     return float(np.median(times))
 
 
@@ -272,7 +308,9 @@ def check_lanes(scorer, rec, tables, scalars, k, label, key_bits=31):
     fs, fd = fq.fused_query_topk_reference(scorer, rec, *tables, scalars, **{**kw, "phase": "full"})
     err = max(err, assert_topk_agree(ms_.cpu(), md_.cpu(), fs.cpu(), fd.cpu()))
     ms = cuda_ms(lambda: fq.fused_query_topk(scorer, rec, *tables, scalars, **kw))
+    dev_ms = graph_ms(lambda: fq.fused_query_topk(scorer, rec, *tables, scalars, **kw))
     plain_ms = cuda_ms(lambda: fq.fused_query_topk_reference(scorer, rec, *tables, scalars, **kw))
+    log(f"{label}: K3 device time {dev_ms:.4f} ms (CUDA graph replay, L2 cold), CUDA events {ms:.4f} ms")
     return err, ms, plain_ms
 
 
@@ -516,24 +554,31 @@ def z2o_bound(args, k, F):
     return bound(payload, 2 + 2 * F, B * NC * 24 + B * 4, B * k * 8, payload * 6 * F)
 
 
-def check_z2o(args, chunk, k, F, label):
+def check_z2o(args, chunk, k, F, label, key_bits=31, exact=None):
     """K4 against its plain version on ``args`` = (rec, c_start, c_skip,
     c_len, c_qterm, c_score, c_rank, qlen): repeat runs bit-equal, top-k
-    within the tolerance; CUDA-event times of both."""
-    kw = dict(chunk=chunk, k=k, num_fields=F)
+    within the tolerance (the rows ``exact`` selects: bit-equal); CUDA-event
+    times of both and the kernel's device time (CUDA graph replay, L2
+    cold)."""
+    kw = dict(chunk=chunk, k=k, num_fields=F, key_bits=key_bits)
     ks, kd = fz.fused_z2o_topk(*args, **kw)
     ks2, kd2 = fz.fused_z2o_topk(*args, **kw)
     assert torch.equal(ks, ks2) and torch.equal(kd, kd2), f"{label}: repeat runs differ"
-    ps, pd = fz.fused_z2o_topk_reference(*args, **kw)
+    ps, pd = fz.fused_z2o_topk_reference(*args, chunk=chunk, k=k, num_fields=F)
     err = assert_topk_agree(ks.cpu(), kd.cpu(), ps.cpu(), pd.cpu())
+    if exact is not None:
+        assert torch.equal(ks[exact], ps[exact]) and torch.equal(kd[exact], pd[exact]), (
+            f"{label}: not bit-equal to plain")
     ms = cuda_ms(lambda: fz.fused_z2o_topk(*args, **kw))
-    plain_ms = cuda_ms(lambda: fz.fused_z2o_topk_reference(*args, **kw))
-    return err, ms, plain_ms
+    dev_ms = graph_ms(lambda: fz.fused_z2o_topk(*args, **kw))
+    plain_ms = cuda_ms(lambda: fz.fused_z2o_topk_reference(*args, chunk=chunk, k=k, num_fields=F))
+    return err, ms, plain_ms, dev_ms
 
 
 def phase_z2o_kernels():
     rng = np.random.default_rng(SEED + 1)
     err_max = 0.0
+    log(f"K4 dynamic shared memory a block may use: {fz.device_avail(0)} B")
     for F in Z2O_F:
         rec_np, starts, lens = synthetic_rec(rng, F=F)
         rec = padded_rows(rec_np, "cuda")
@@ -541,12 +586,28 @@ def phase_z2o_kernels():
             args = (rec, *synthetic_z2o_tables(rng, starts, lens, 1024, NC))
             for k in TOP_KS:
                 label = f"z2o F={F} NC={NC} k={k}"
-                err, ms, plain_ms = check_z2o(args, C, k, F, label)
+                err, ms, plain_ms, dev_ms = check_z2o(args, C, k, F, label, SYN_Z2O_KEY_BITS)
                 torch.cuda.synchronize()
                 err_max = max(err_max, err)
                 bound_ms, _by = z2o_bound(args, k, F)
                 log(f"kernel {label:22s} B=1024 L={NC * C:6d}: ok, max_abs_err {err:.3g}, "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
+                    f"kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms")
+    for kind in Z2O_EDGES:  # K4's edges
+        rec_np, tables, Cz, F, k, slots = z2o_edge(kind, SEED)
+        args = (padded_rows(rec_np, "cuda"), *(dev(t, torch.float32 if t.dtype == np.float32 else torch.int32)
+                                                for t in tables))
+        label = f"z2o edge {kind} C={Cz} NC={tables[0].shape[1]} F={F} k={k}"
+        # bit-equal where the sums are exact: every row of "ties", the edge row 0
+        exact = slice(None) if kind == "ties" else 0 if kind in Z2O_ROW0_EDGES else None
+        err, ms, plain_ms, dev_ms = check_z2o(args, Cz, k, F, label,
+                                              fm.key_bits_for(slots, fz.DOC_SHIFT), exact)
+        n = kernels_per_call(lambda: fz.fused_z2o_topk(*args, chunk=Cz, k=k, num_fields=F,
+                                                        key_bits=fm.key_bits_for(slots, fz.DOC_SHIFT)))
+        assert n == 1, f"{label}: {n} kernels per call"
+        err_max = max(err_max, err)
+        log(f"kernel {label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, 1 kernel launch per call (CUDA graph)")
     return err_max
 
 
@@ -911,6 +972,7 @@ def check_z2o_window(dix, queries, k):
     tables.  Returns (largest error, kernel ms, plain ms, bound ms, bound_by)
     summed over those classes."""
     err_max, tot = 0.0, [0.0, 0.0, 0.0, "bytes"]
+    dev_tot = 0.0
     F, Cw = dix.num_fields, dix.CHUNK
     for (b_pad, b_out, nj, nc, _fast), route, jobs, qlen in z2o_window_classes(dix, queries, k):
         label = f"z2o window class nc={nc} nj={nj} rows={b_out}/{b_pad}"
@@ -920,15 +982,19 @@ def check_z2o_window(dix, queries, k):
         c_start, c_skip, c_len, c_qterm, c_rank, c_score = pz.expand_chunks_z2o(jobs, Cw, nc)
         args = (dix.rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, qlen)
         kk = min(k, nc * Cw)
-        err, ms, plain_ms = check_z2o(args, Cw, kk, F, label)
+        err, ms, plain_ms, dev_ms = check_z2o(args, Cw, kk, F, label,
+                                               fm.key_bits_for(dix.num_slots, fz.DOC_SHIFT))
         bound_ms, by = z2o_bound(args, kk, F)
         err_max = max(err_max, err)
         tot[0] += ms
         tot[1] += plain_ms
         tot[2] += bound_ms
         tot[3] = by
-        log(f"{label}: route fused_z2o, ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        dev_tot += dev_ms
+        log(f"{label}: route fused_z2o, ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    log(f"K4 over the window's classes: {tot[0]:.4f} ms CUDA events, {dev_tot:.4f} ms device "
+        f"(CUDA graph replay, L2 cold), bound {tot[2]:.4f} ms")
     return err_max, tot
 
 

@@ -14,7 +14,8 @@
 //   fused_query_lanes  phase "lanes": one CTA per (row, chunk); writes the
 //                      [B, NC * C] key and score lanes to device memory for
 //                      classes too wide for one CTA's shared memory (the
-//                      merge kernel K5 then merges them).
+//                      merge kernel K5 then merges them), with 16-B loads
+//                      and stores.
 //
 // What bounds it on this card: the gather.  Each payload lane reads R int32
 // rows of the transposed posting record array rec[R, P + C] (16 B per lane at
@@ -49,7 +50,7 @@ constexpr int kLanesThreads = 256;
 
 struct QueryArgs {
   const int32_t* rec;     // [R, rec_stride] transposed posting records
-  int64_t rec_stride;     // >= P + C; a multiple of 4 for the full phase
+  int64_t rec_stride;     // >= P + C; a multiple of 4 (16-B rows)
   const int32_t* c_start; // [B, NC] chunk start column in rec
   const int32_t* c_skip;  // [B, NC] payload begins at this lane of the chunk
   const int32_t* c_len;   // [B, NC] payload length (0: dead chunk)
@@ -63,6 +64,27 @@ struct QueryArgs {
                           // in shared memory
   float k1, b;
 };
+
+// One field's term of a lane's BM25 base score, added to `base` (the first
+// field's term starts it).
+__device__ __forceinline__ float bm25_field(const QueryArgs& a, const float* scalars, int f,
+                                            float tf, float flen, float base) {
+  const float avg = scalars[f];
+  const float boost = scalars[a.F + f];
+  const float denom = a.k1 * ((1.0f - a.b) + a.b * (flen / avg)) + tf;
+  const float tf_norm = tf > 0.0f ? ((a.k1 + 1.0f) * tf) / denom : 0.0f;
+  return f == 0 ? tf_norm * boost : base + tf_norm * boost;
+}
+
+// A payload lane's score from its base: the job's scale, `excl`, and -inf
+// on a latently dead doc.
+__device__ __forceinline__ float bm25_finish(const QueryArgs& a, float base, float scale,
+                                             int32_t alive) {
+  float sc = base * scale;
+  if (a.excl) sc = sc > 0.0f ? sc : 0.0f;
+  if (alive <= 0) sc = -INFINITY;
+  return sc;
+}
 
 // Key and score of lane p of a chunk whose payload is [skip, skip + len),
 // scale and query term `scale`, `qterm`; `r` points at record row 0 of the
@@ -82,17 +104,10 @@ __device__ __forceinline__ void lane_key_score(const QueryArgs& a, float scale, 
   for (int f = 0; f < a.F; ++f) {
     const float tf = (float)r[(int64_t)(1 + f) * s];
     const float flen = __int_as_float(r[(int64_t)(1 + a.F + f) * s]);
-    const float avg = scalars[f];
-    const float boost = scalars[a.F + f];
-    const float denom = a.k1 * ((1.0f - a.b) + a.b * (flen / avg)) + tf;
-    const float tf_norm = tf > 0.0f ? ((a.k1 + 1.0f) * tf) / denom : 0.0f;
-    base = f == 0 ? tf_norm * boost : base + tf_norm * boost;
+    base = bm25_field(a, scalars, f, tf, flen, base);
   }
-  float sc = base * scale;
-  if (a.excl) sc = sc > 0.0f ? sc : 0.0f;
-  if (alive <= 0) sc = -INFINITY;
   key = (doc << a.qterm_bits) | qterm;
-  score = sc;
+  score = bm25_finish(a, base, scale, alive);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -107,6 +122,42 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// V consecutive int32 of device memory into registers (V = 4: one 16-B
+// load, `p` 16-B aligned), and V values out the same way.
+template <int V>
+__device__ __forceinline__ void load_lanes(const int32_t* p, int32_t* v) {
+  if constexpr (V == 4) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[q] = __ldg(p + q);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_lanes(int32_t* p, const int32_t* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) p[q] = v[q];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_lanes(float* p, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) p[q] = v[q];
+  }
 }
 
 // Full phase, one CTA of NT threads per query row.  Dynamic shared memory
@@ -244,22 +295,60 @@ __global__ void __launch_bounds__(NT, MINB)
   full_phase<NT, MAXS, false>(a, out_s, out_d, nullptr);
 }
 
-// Lanes phase: grid (NC, B), one chunk of one row per CTA.
+// Lanes phase: grid (NC, B), one chunk of one row per CTA.  A thread takes V
+// consecutive lanes (V = 4 when C is a multiple of 4: one 16-B load per
+// record row, one 16-B store per output; chunk starts are multiples of 128
+// and rec's rows 16-B aligned), all record rows of its lanes in flight before
+// the first is used.  Pad lanes and dead chunks read nothing from rec and
+// write their sentinels.
+template <int V>
 __global__ void __launch_bounds__(kLanesThreads)
     fused_query_lanes_kernel(QueryArgs a, float* __restrict__ out_s,
                              int32_t* __restrict__ out_k) {
   const int c = blockIdx.x, row = blockIdx.y;
   const int64_t t = (int64_t)row * a.NC + c;
-  const int skip = a.c_skip[t], len = a.c_len[t], qterm = a.c_qterm[t];
-  const float scale = a.c_scale[t];
-  const int64_t o = (int64_t)row * a.NC * a.C + (int64_t)c * a.C;
-  for (int p = threadIdx.x; p < a.C; p += blockDim.x) {
-    int32_t key;
-    float score;
-    lane_key_score(a, scale, qterm, a.scalars, skip, len, p,
-                   a.rec + (int64_t)a.c_start[t] + p, a.rec_stride, key, score);
-    out_k[o + p] = key;
-    out_s[o + p] = score;
+  const int skip = a.c_skip[t], len = a.c_len[t];
+  const int64_t s = a.rec_stride, o = t * a.C;
+  for (int p = threadIdx.x * V; p < a.C; p += kLanesThreads * V) {
+    int32_t key[V];
+    float score[V];
+    if (p + V <= skip || p >= skip + len) {  // pads only: read nothing
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        key[q] = p + q < skip ? -1 : kInvalidKey;
+        score[q] = 0.0f;
+      }
+    } else {
+      const int32_t* r = a.rec + a.c_start[t] + p;
+      int32_t doc[V], alive[V];
+      load_lanes<V>(r, doc);
+      load_lanes<V>(r + (1 + 2 * a.F) * s, alive);
+      float base[V] = {};
+#pragma unroll 2
+      for (int f = 0; f < a.F; ++f) {
+        int32_t tf[V], fl[V];
+        load_lanes<V>(r + (1 + f) * s, tf);
+        load_lanes<V>(r + (1 + a.F + f) * s, fl);
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          base[q] = bm25_field(a, a.scalars, f, (float)tf[q], __int_as_float(fl[q]), base[q]);
+      }
+      const int qterm = a.c_qterm[t];
+      const float scale = a.c_scale[t];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int lane = p + q;
+        if (lane < skip || lane >= skip + len) {
+          key[q] = lane < skip ? -1 : kInvalidKey;
+          score[q] = 0.0f;
+        } else {
+          key[q] = (doc[q] << a.qterm_bits) | qterm;
+          score[q] = bm25_finish(a, base[q], scale, alive[q]);
+        }
+      }
+    }
+    store_lanes<V>(out_k + o + p, key);
+    store_lanes<V>(out_s + o + p, score);
   }
 }
 
@@ -369,12 +458,16 @@ int fused_query_lanes(int device, const int32_t* rec, long long rec_stride,
                       int C, int F, int qterm_bits, float k1, float b, int excl,
                       float* out_s, int32_t* out_k, void* stream) {
   if (B == 0 || NC == 0) return 0;
+  if (C < 1 || (C & (C - 1))) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   QueryArgs a = make_args(rec, rec_stride, c_start, c_skip, c_len, c_qterm,
                           c_scale, scalars, NC, C, F, 0, qterm_bits, k1, b, excl);
-  fused_query_lanes_kernel<<<dim3(NC, B), kLanesThreads, 0,
-                             (cudaStream_t)stream>>>(a, out_s, out_k);
+  const dim3 grid(NC, B);
+  if ((C & 3) == 0)
+    fused_query_lanes_kernel<4><<<grid, kLanesThreads, 0, (cudaStream_t)stream>>>(a, out_s, out_k);
+  else
+    fused_query_lanes_kernel<1><<<grid, kLanesThreads, 0, (cudaStream_t)stream>>>(a, out_s, out_k);
   return (int)cudaGetLastError();
 }
 

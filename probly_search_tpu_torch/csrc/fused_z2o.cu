@@ -1,4 +1,4 @@
-// Fused zero-to-one query kernel for Hopper (sm_90a): gather, two-key merge,
+// Fused zero-to-one query kernel for Hopper (sm_90a): gather, ordered sort,
 // per-field first-valid reduction, pool sums, max over fields, top-k.
 //
 // Replaces the Pallas TPU kernel of probly_search_tpu/ops/pallas_z2o.py
@@ -11,44 +11,74 @@
 //      pads, INT32_MAX on trailing pads; k2 = rank << 14 | lane;
 //   3. per field f: contrib_f = min(s / tf_f, 1) * tf_f / max(flen_f, qlen),
 //      or -1 where the lane is not live or tf_f == 0;
-//   4. merge the NC ascending C-runs under the lexicographic order (k1, k2);
+//   4. order the lanes by (k1, k2);
 //   5. per field, keep the first valid contribution of each (doc, alive,
 //      qterm) group, i.e. the oracle's best entry per (doc, field, qterm):
 //      rank orders a group by entry score descending, lane by enumeration;
 //   6. sum those per doc in qterm order, take the max over fields, then
 //      max(., 0), and keep only docs whose key says alive;
-//   7. top-k, ties to the lowest doc (= lowest lane of the sorted row).
+//   7. top-k, ties to the lowest doc.
 //
 // What bounds it on this card: the gather reads (2 + 2F) int32 rows per
 // payload lane, scattered over the index by the chunk starts; everything
-// after it stays in shared memory.  The design: one CTA per query row (only
-// the first b_out rows of a class are launched); the row's merge keys
-// ((k1, k2) packed into one int64) and its F contribution arrays live in
-// dynamic shared memory, (8 + 4F) * L bytes, at most 196,608 B at L = 8192,
-// F = 4; loads are coalesced along the C lanes of a chunk and dead chunks and
-// pad lanes read nothing.  The merge is bitonic merge levels over the C-runs
-// with a phantom (INT32_MAX, INT32_MAX) tail for L that is not a power of
-// two; swaps carry the key and F contributions.  The group and doc
-// reductions need no scan ladder: the thread that owns a doc's tail lane
-// walks back over the doc's run (at most NC lanes: a doc appears at most once
-// per chunk).  Built without --use_fast_math, so divisions stay IEEE-rounded
-// and contributions equal the JAX engine's bit for bit; only the per-doc
-// sums are taken in another order.
+// after it stays in shared memory.  The design, one CTA per query row (256
+// threads up to 2,048 lanes, so four rows share an SM; 512 beyond), dead
+// rows emitting the empty sentinel at once:
+//
+//   gather  the row's chunk tables are read once (into shared memory up to
+//           64 chunks); each thread takes 4 consecutive lanes of a chunk and
+//           loads them as one 16-B vector per record row, all 2 + 2F loads
+//           in flight before the first is used (chunk starts are multiples
+//           of 128 and rec's rows are padded to 128 int32, so the vectors
+//           are aligned).  That keeps up to 80 KB of loads in flight per
+//           CTA, more than a shared-memory ring could hold beside the row's
+//           lanes (at L = 8,192 and F = 4 the lanes take 196,608 B and
+//           leave ~24 KB).  Pad lanes and dead chunks read nothing.
+//   order   no 64-bit key: the chunks are laid out in ascending (rank, chunk)
+//           order, lane p of a chunk at position(chunk) * C + p, and a
+//           stable LSD radix sort by k1 alone (block_merge.cuh, over the
+//           index's key_bits) leaves equal k1 in (rank, chunk, p) order,
+//           which is the k2 order: a doc appears at most once per chunk.
+//           Pads and the lanes of latently dead docs (all of a doc's postings
+//           share its liveness, and a dead doc never scores) are dropped in
+//           the first pass.  The sort carries each lane's slot; the F
+//           contribution arrays stay where the gather wrote them.
+//   reduce  the owner of a doc's tail lane walks the doc's run (at most NC
+//           lanes) and leaves the doc's score on the tail lane.
+//   top-k   on (score, ~doc) words, unique per doc, so ties go to the lowest
+//           doc.  For k <= 32 each warp keeps its 32 largest words in
+//           registers as the reduction produces them (a warp-wide bitonic
+//           merge, skipped when no new word beats the list's k-th), and one
+//           warp merges the warps' lists: no pass over the lanes and no
+//           rounds, whatever the ties (z2o scores tie often, and a radix
+//           select then runs all 8 rounds).  Past 32, block_select and
+//           write_topk, the words in device scratch past what shared memory
+//           holds.
+//
+// Shared memory is sized to the class (z2o_launch in ops/fused_z2o.py), so
+// narrow classes run several CTAs per SM.  Built without --use_fast_math, so
+// divisions stay IEEE-rounded and contributions equal the JAX engine's bit
+// for bit; only the per-doc sums are taken in another order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "block_merge.cuh"
+
 namespace {
 
-constexpr int32_t kMaxKey = 0x7fffffff;
-constexpr int kThreads = 512;
+using blockmerge::kFull;
+using blockmerge::kInvalidKey;
 constexpr int kQtBits = 4;
+constexpr int kDocShift = kQtBits + 1;  // k1 = doc << 5 | alive << 4 | qterm
 constexpr int kMaxFields = 4;
+constexpr int kTableChunks = 64;  // chunk tables held in shared memory up to this NC
+constexpr int kListK = 32;        // k up to which the warps' lists give the top k
 
 struct Z2oArgs {
   const int32_t* rec;      // [R, rec_stride] transposed posting records
-  int64_t rec_stride;      // P + C
+  int64_t rec_stride;      // P + C padded; a multiple of 4 (16-B rows)
   const int32_t* c_start;  // [B, NC] chunk start column in rec
   const int32_t* c_skip;   // [B, NC] payload begins at this lane of the chunk
   const int32_t* c_len;    // [B, NC] payload length (0: dead chunk)
@@ -57,244 +87,316 @@ struct Z2oArgs {
   const int32_t* c_rank;   // [B, NC] per-query dense rank of s (descending)
   const float* qlen;       // [B] query_terms_len, empty tokens included
   int NC, C, F, k;
+  int key_bits;            // every live k1 lies below 2^key_bits
+  uint64_t* cand;          // [B, cand_words(k)] top-k words in device memory, or
+                           // null: in shared memory (k > kListK only)
 };
 
-__device__ __forceinline__ bool key_valid(int32_t k1) {
-  return k1 >= 0 && k1 != kMaxKey;
+// One row's chunk tables: in shared memory up to kTableChunks chunks, else
+// the row's slice of device memory.
+struct Tables {
+  const int32_t *start, *skip, *len, *qterm, *rank;
+  const float* score;
+};
+
+struct TableSmem {
+  int32_t start[kTableChunks], skip[kTableChunks], len[kTableChunks], qterm[kTableChunks],
+      rank[kTableChunks];
+  float score[kTableChunks];
+};
+
+// Bytes of the chunk-position table (int16 a chunk), rounded up to 16.
+__host__ __device__ __forceinline__ int pos_bytes(int NC) { return (2 * NC + 15) & ~15; }
+
+// Dynamic shared memory of one row: ks int32[L], vs f32[L], cs f32[F][L],
+// the chunk positions, and the top-k words of a k past kListK when they sit
+// there (`words`).
+__host__ __device__ __forceinline__ long long z2o_smem(int NC, int C, int F, int k, bool words) {
+  const long long L = (long long)NC * C;
+  const bool held = words && k > kListK;
+  return (8 + 4LL * F) * L + pos_bytes(NC) + (held ? 8LL * blockmerge::cand_words(k) : 0);
 }
 
-__device__ __forceinline__ void compare_exchange(int64_t* ks, float* cs, int L,
-                                                 int F, int i, int j) {
-  const int64_t ki = ks[i], kj = ks[j];
-  if (ki > kj) {
-    ks[i] = kj;
-    ks[j] = ki;
-    for (int f = 0; f < F; ++f) {
-      float* c = cs + (int64_t)f * L;
-      const float v = c[i];
-      c[i] = c[j];
-      c[j] = v;
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = int4;
+  __device__ static T load(const int32_t* p) { return __ldg(reinterpret_cast<const int4*>(p)); }
+  __device__ static int32_t at(const T& v, int q) {
+    return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+  }
+};
+template <>
+struct Vec<1> {
+  using T = int32_t;
+  __device__ static T load(const int32_t* p) { return __ldg(p); }
+  __device__ static int32_t at(T v, int) { return v; }
+};
+
+// Gather: V consecutive lanes a thread (V = 4 when C is a multiple of 4),
+// lane p of chunk c into slot pos[c] * C + p: k1 into ks (kInvalidKey on pads
+// and dead docs), the slot's own index into vs, contributions into cs.
+template <int NT, int V>
+__device__ __forceinline__ void gather(const Z2oArgs& a, const Tables& tb, const short* pos,
+                                       int32_t* ks, float* vs, float* cs) {
+  using VT = typename Vec<V>::T;
+  const int C = a.C, F = a.F, L = a.NC * C;
+  const int64_t s = a.rec_stride;
+  const int cshift = __ffs(C) - 1;  // C is a power of two
+  const float ql = a.qlen[blockIdx.x];
+  for (int g = threadIdx.x * V; g < L; g += NT * V) {
+    const int c = g >> cshift, p = g & (C - 1);
+    const int skip = tb.skip[c], len = tb.len[c];
+    const int slot = pos[c] * C + p;
+    if (p + V <= skip || p >= skip + len) {  // pads only: read nothing
+#pragma unroll
+      for (int q = 0; q < V; ++q) ks[slot + q] = kInvalidKey;
+      continue;
+    }
+    const int32_t* r = a.rec + tb.start[c] + p;
+    const VT doc = Vec<V>::load(r);
+    const VT alive = Vec<V>::load(r + (1 + 2 * F) * s);
+    VT tf[kMaxFields], fl[kMaxFields];
+#pragma unroll
+    for (int f = 0; f < kMaxFields; ++f) {
+      if (f < F) {
+        tf[f] = Vec<V>::load(r + (1 + f) * s);
+        fl[f] = Vec<V>::load(r + (1 + F + f) * s);
+      }
+    }
+    const int qterm = tb.qterm[c];
+    const float sc = tb.score[c];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int lane = p + q;
+      const bool live = lane >= skip && lane < skip + len && Vec<V>::at(alive, q) > 0;
+      ks[slot + q] = live ? (Vec<V>::at(doc, q) << kDocShift) | (1 << kQtBits) | qterm : kInvalidKey;
+      vs[slot + q] = __int_as_float(slot + q);
+#pragma unroll
+      for (int f = 0; f < kMaxFields; ++f) {
+        if (f < F) {
+          const float tfv = (float)Vec<V>::at(tf[f], q);
+          const float flen = __int_as_float(Vec<V>::at(fl[f], q));
+          cs[(int64_t)f * L + slot + q] =
+              tfv > 0.0f ? fminf(sc / tfv, 1.0f) * tfv / fmaxf(flen, ql) : -1.0f;
+        }
+      }
     }
   }
 }
 
-// (value, lane) arg-max with ties to the lower lane.
-__device__ __forceinline__ void better(float& bv, int& bi, float v, int i) {
-  if (v > bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
+// Warp-wide: the 32 largest words of two descending lists, descending
+// (lane j holds the j-th): the elementwise max of a and b reversed is a
+// bitonic sequence holding them, then a bitonic merge.
+__device__ __forceinline__ uint64_t warp_list_merge(uint64_t a, uint64_t b) {
+  const int lane = threadIdx.x & 31;
+  const uint64_t r = __shfl_sync(kFull, b, 31 - lane);
+  uint64_t v = a > r ? a : r;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const uint64_t o = __shfl_xor_sync(kFull, v, d);
+    v = (lane & d) == 0 ? (o > v ? o : v) : (o < v ? o : v);
+  }
+  return v;
+}
+
+// Warp-wide: add the words w (one a lane, any order; 0 = none) to the
+// warp's descending list l, unless none beats its kk-th largest word.
+__device__ __forceinline__ uint64_t warp_list_add(uint64_t l, uint64_t w, int kk) {
+  if (!__any_sync(kFull, w > __shfl_sync(kFull, l, kk - 1))) return l;
+  return warp_list_merge(l, blockmerge::warp_sort_desc(w));
+}
+
+// Per doc run of the n sorted live lanes: the owner of a doc's tail lane
+// reads the run (every field: the first valid contribution of each equal-k1
+// group, summed in ascending qterm order; the max over fields, then
+// max(., 0)), leaves the score on the tail lane and -inf on the run's other
+// lanes, which only it reads.  Each warp walks 32 consecutive lanes at a
+// time and adds its docs' words to its list of the 32 largest; returns the
+// calling lane's entry of its warp's list.
+template <int NT>
+__device__ __forceinline__ uint64_t doc_scores(const Z2oArgs& a, const int32_t* ks, float* vs,
+                                               const float* cs, int n) {
+  const int L = a.NC * a.C;
+  const int lane = threadIdx.x & 31;
+  const int kk = a.k < kListK ? a.k : kListK;
+  uint64_t list = 0;
+  for (int b = threadIdx.x - lane; b < n; b += NT) {  // warp-uniform
+    const int i = b + lane;
+    uint64_t w = 0;
+    const int32_t doc = i < n ? ks[i] >> kDocShift : -1;
+    if (i < n && (i + 1 >= n || (ks[i + 1] >> kDocShift) != doc)) {  // a tail
+      int h = i;
+      while (h > 0 && (ks[h - 1] >> kDocShift) == doc) --h;
+      float best = -INFINITY;
+      for (int f = 0; f < a.F; ++f) {
+        const float* c = cs + (int64_t)f * L;
+        float total = 0.0f;
+        int32_t grp = -1;
+        bool taken = false;
+        for (int j = h; j <= i; ++j) {
+          const int32_t kj = ks[j];
+          if (kj != grp) {
+            grp = kj;
+            taken = false;
+          }
+          if (!taken) {
+            const float v = c[__float_as_int(vs[j])];
+            if (v >= 0.0f) {
+              total += v;
+              taken = true;
+            }
+          }
+        }
+        best = fmaxf(best, total);
+      }
+      const float score = fmaxf(best, 0.0f);
+      for (int j = h; j < i; ++j) vs[j] = -INFINITY;
+      vs[i] = score;
+      w = blockmerge::select_word(score, doc);
+    }
+    list = warp_list_add(list, w, kk);
+  }
+  __syncthreads();
+  return list;
+}
+
+// k <= kListK: one warp merges the warps' lists (staged in `buf`, NT words)
+// and writes the k results, -inf / -1 past the docs.
+template <int NT>
+__device__ __forceinline__ void lists_topk(uint64_t list, int k, uint64_t* buf, float* os,
+                                           int32_t* od) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  buf[threadIdx.x] = list;
+  __syncthreads();
+  if (warp == 0) {
+    uint64_t v = list;
+    for (int j = 1; j < NT / 32; ++j) {
+      const uint64_t b = buf[j * 32 + lane];
+      if (__shfl_sync(kFull, b, 0) > __shfl_sync(kFull, v, k - 1)) v = warp_list_merge(v, b);
+    }
+    if (lane < k) {
+      os[lane] = v ? blockmerge::word_total(v) : -INFINITY;
+      od[lane] = v ? blockmerge::word_doc(v) : -1;
+    }
   }
 }
 
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v = __shfl_down_sync(0xffffffffu, bv, off);
-    const int i = __shfl_down_sync(0xffffffffu, bi, off);
-    better(bv, bi, v, i);
-  }
-}
-
-// Dynamic shared memory: ks int64[L] (k1 << 32 | k2), cs f32[F][L].
-__global__ void __launch_bounds__(kThreads)
-    fused_z2o_kernel(Z2oArgs a, float* __restrict__ out_s,
-                     int32_t* __restrict__ out_d) {
-  extern __shared__ int64_t smem64[];
-  __shared__ float red_v[kThreads / 32];
-  __shared__ int red_i[kThreads / 32];
-  __shared__ int done;
+// One query row a CTA of NT threads.  CLOCK (tools/torch_stage_probe.py
+// only) writes each block's cycles per stage (gather, merge, per-doc
+// reduction, top-k, write) to clk[row][5].
+template <int NT, int MAXS, bool CLOCK>
+__device__ __forceinline__ void z2o_body(const Z2oArgs& a, float* __restrict__ out_s,
+                                         int32_t* __restrict__ out_d, long long* clk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ blockmerge::SelectSmem sel;
+  __shared__ blockmerge::RadixSmem<NT> rs;
+  __shared__ TableSmem tsm;
+  long long stamp[6];
+  if (CLOCK) stamp[0] = clock64();
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
-  const int F = a.F, C = a.C;
-  const int L = a.NC * C;
-  const int64_t t0 = (int64_t)row * a.NC;
-  int64_t* ks = smem64;
-  float* cs = reinterpret_cast<float*>(smem64 + L);
+  const int NC = a.NC, C = a.C, L = NC * C;
+  const int64_t t0 = (int64_t)row * NC;
+  int32_t* ks = reinterpret_cast<int32_t*>(smem);
+  float* vs = reinterpret_cast<float*>(ks + L);
+  float* cs = vs + L;
+  short* pos = reinterpret_cast<short*>(cs + (int64_t)a.F * L);
+  float* os = out_s + (int64_t)row * a.k;
+  int32_t* od = out_d + (int64_t)row * a.k;
 
-  // Dead-row skip: a row with no live chunk emits the empty sentinel.
+  // The row's tables (one read of device memory), and the dead-row skip: a
+  // row with no live chunk emits the empty sentinel.
+  const bool in_smem = NC <= kTableChunks;
+  Tables tb;
+  if (in_smem) {
+    tb = {tsm.start, tsm.skip, tsm.len, tsm.qterm, tsm.rank, tsm.score};
+  } else {
+    tb = {a.c_start + t0, a.c_skip + t0, a.c_len + t0, a.c_qterm + t0, a.c_rank + t0,
+          a.c_score + t0};
+  }
   int my_live = 0;
-  for (int c = tid; c < a.NC; c += blockDim.x) my_live |= a.c_len[t0 + c] > 0;
+  for (int c = tid; c < NC; c += NT) {
+    const int len = a.c_len[t0 + c];
+    my_live |= len > 0;
+    if (in_smem) {
+      tsm.start[c] = a.c_start[t0 + c];
+      tsm.skip[c] = a.c_skip[t0 + c];
+      tsm.len[c] = len;
+      tsm.qterm[c] = a.c_qterm[t0 + c];
+      tsm.rank[c] = a.c_rank[t0 + c];
+      tsm.score[c] = a.c_score[t0 + c];
+    }
+  }
   if (!__syncthreads_or(my_live)) {
-    for (int i = tid; i < a.k; i += blockDim.x) {
-      out_s[(int64_t)row * a.k + i] = -INFINITY;
-      out_d[(int64_t)row * a.k + i] = -1;
+    for (int i = tid; i < a.k; i += NT) {
+      os[i] = -INFINITY;
+      od[i] = -1;
     }
     return;
   }
-
-  // Gather: lane keys and per-field contributions.  Consecutive threads take
-  // consecutive lanes of a chunk (coalesced reads of each rec row); pad lanes
-  // and dead chunks read nothing from rec.
-  const float ql = a.qlen[row];
-  const int64_t s = a.rec_stride;
-  const int cshift = __ffs(C) - 1;  // C is a power of two
-  for (int lane = tid; lane < L; lane += blockDim.x) {
-    const int64_t t = t0 + (lane >> cshift);
-    const int p = lane & (C - 1);
-    const int skip = a.c_skip[t], len = a.c_len[t];
-    int32_t k1;
-    if (p < skip || p >= skip + len) {
-      k1 = p < skip ? -1 : kMaxKey;
-      for (int f = 0; f < F; ++f) cs[(int64_t)f * L + lane] = -1.0f;
-    } else {
-      const int32_t* r = a.rec + (int64_t)a.c_start[t] + p;
-      const int32_t doc = r[0];
-      const int32_t alive = r[(int64_t)(1 + 2 * F) * s];
-      const float sc = a.c_score[t];
-      k1 = (doc << (kQtBits + 1)) | (alive << kQtBits) | a.c_qterm[t];
-      for (int f = 0; f < F; ++f) {
-        const float tf = (float)r[(int64_t)(1 + f) * s];
-        const float flen = __int_as_float(r[(int64_t)(1 + F + f) * s]);
-        float v = -1.0f;
-        if (alive > 0 && tf > 0.0f) v = fminf(sc / tf, 1.0f) * tf / fmaxf(flen, ql);
-        cs[(int64_t)f * L + lane] = v;
-      }
+  // Chunk positions: ascending (rank, chunk).
+  for (int c = tid; c < NC; c += NT) {
+    const int32_t r = tb.rank[c];
+    int p = 0;
+    for (int d = 0; d < NC; ++d) {
+      const int32_t rd = tb.rank[d];
+      p += rd < r || (rd == r && d < c);
     }
-    // Signed k1 in the high word, k2 = rank << 14 | lane >= 0 in the low
-    // word: int64 order is the lexicographic (k1, k2) order.
-    const uint32_t k2 = (uint32_t)((a.c_rank[t] << 14) | lane);
-    ks[lane] = (int64_t)(((uint64_t)(uint32_t)k1 << 32) | k2);
+    pos[c] = (short)p;
   }
   __syncthreads();
-
-  // Merge the NC ascending runs of C lanes (C a power of two): bitonic merge
-  // levels on a virtual power-of-two lane space whose tail [L, Lp) holds
-  // phantom maximal keys; a pair whose high lane is a phantom never swaps.
-  int Lp = C;
-  while (Lp < L) Lp <<= 1;
-  const int half = Lp >> 1;
-  for (int m = C; m < Lp; m <<= 1) {
-    for (int t = tid; t < half; t += blockDim.x) {  // flip stage
-      const int base = (t & ~(m - 1)) << 1, o = t & (m - 1);
-      const int j = base + 2 * m - 1 - o;
-      if (j < L) compare_exchange(ks, cs, L, F, base + o, j);
-    }
-    __syncthreads();
-    for (int d = m >> 1; d >= 1; d >>= 1) {  // half-cleaners
-      for (int t = tid; t < half; t += blockDim.x) {
-        const int i = ((t & ~(d - 1)) << 1) | (t & (d - 1));
-        if (i + d < L) compare_exchange(ks, cs, L, F, i, i + d);
-      }
-      __syncthreads();
-    }
-  }
-
-  // Per doc run of the sorted row.  The owner of a doc's tail lane reads the
-  // run (every field), then leaves the doc score on the tail lane of cs[0]
-  // and -inf on the run's other lanes; pad lanes become -inf.  Runs are
-  // disjoint and each is read before it is written, so this is done in place.
-  for (int i = tid; i < L; i += blockDim.x) {
-    const int32_t k1 = (int32_t)(ks[i] >> 32);
-    if (!key_valid(k1)) {
-      cs[i] = -INFINITY;
-      continue;
-    }
-    const int32_t doc = k1 >> (kQtBits + 1);
-    if (i + 1 < L) {
-      const int32_t kn = (int32_t)(ks[i + 1] >> 32);
-      if (key_valid(kn) && (kn >> (kQtBits + 1)) == doc) continue;  // not the tail
-    }
-    int h = i;
-    while (h > 0) {
-      const int32_t kp = (int32_t)(ks[h - 1] >> 32);
-      if (!key_valid(kp) || (kp >> (kQtBits + 1)) != doc) break;
-      --h;
-    }
-    // Per field: the first valid contribution of each (doc, alive, qterm)
-    // group, summed over the doc's groups in ascending qterm order.
-    float best = -INFINITY;
-    for (int f = 0; f < F; ++f) {
-      const float* c = cs + (int64_t)f * L;
-      float total = 0.0f;
-      int32_t grp = -1;
-      bool taken = false;
-      for (int j = h; j <= i; ++j) {
-        const int32_t kj = (int32_t)(ks[j] >> 32);
-        if (kj != grp) {
-          grp = kj;
-          taken = false;
-        }
-        if (!taken && c[j] >= 0.0f) {
-          total += c[j];
-          taken = true;
-        }
-      }
-      best = fmaxf(best, total);
-    }
-    const bool alive = (k1 >> kQtBits) & 1;
-    for (int j = h; j < i; ++j) cs[j] = -INFINITY;
-    cs[i] = alive ? fmaxf(best, 0.0f) : -INFINITY;
-  }
+  if ((C & 3) == 0)
+    gather<NT, 4>(a, tb, pos, ks, vs, cs);
+  else
+    gather<NT, 1>(a, tb, pos, ks, vs, cs);
   __syncthreads();
+  if (CLOCK) stamp[1] = clock64();
 
-  // Top-k: k rounds of a block arg-max (ties to the lowest lane, which is the
-  // lowest doc since lanes are key-sorted and each doc has one tail lane).
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int r = 0; r < a.k; ++r) {
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int i = tid; i < L; i += blockDim.x) better(bv, bi, cs[i], i);
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
+  const int n = blockmerge::block_radix_sort<NT, MAXS>(ks, vs, L, a.key_bits, rs);
+  if (CLOCK) stamp[2] = clock64();
+  const uint64_t list = doc_scores<NT>(a, ks, vs, cs, n);
+  if (CLOCK) stamp[3] = clock64();
+  if (a.k <= kListK) {
+    lists_topk<NT>(list, a.k, rs.words(), os, od);
+    if (CLOCK) stamp[4] = clock64();
+  } else {
+    uint64_t* cand = a.cand ? a.cand + (int64_t)row * blockmerge::cand_words(a.k)
+                            : reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(pos) +
+                                                          pos_bytes(NC));
+    const int m = blockmerge::block_select<NT>(ks, vs, n, kDocShift, a.k, list, cand, sel,
+                                               rs.words(), rs.kWords);
+    if (CLOCK) stamp[4] = clock64();
+    blockmerge::write_topk<NT>(cand, m, a.k, os, od);
+  }
+  if (CLOCK) {
     __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -INFINITY;
-      bi = lane < nwarps ? red_i[lane] : 0x7fffffff;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        const int64_t o = (int64_t)row * a.k + r;
-        if (bv > -INFINITY) {
-          out_s[o] = bv;
-          out_d[o] = (int32_t)(ks[bi] >> 32) >> (kQtBits + 1);
-          cs[bi] = -INFINITY;
-          done = 0;
-        } else {
-          for (int q = r; q < a.k; ++q) {
-            out_s[(int64_t)row * a.k + q] = -INFINITY;
-            out_d[(int64_t)row * a.k + q] = -1;
-          }
-          done = 1;
-        }
-      }
-    }
-    __syncthreads();
-    if (done) break;
+    stamp[5] = clock64();
+    if (tid == 0)
+      for (int q = 0; q < 5; ++q) clk[(int64_t)row * 5 + q] = stamp[q + 1] - stamp[q];
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Dynamic shared memory one row of the kernel needs.
-long long fused_z2o_smem_bytes(int NC, int C, int F) {
-  return (long long)NC * C * (sizeof(int64_t) + (long long)F * sizeof(float));
+template <int NT, int MAXS, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
+    fused_z2o_kernel(Z2oArgs a, float* __restrict__ out_s, int32_t* __restrict__ out_d) {
+  z2o_body<NT, MAXS, false>(a, out_s, out_d, nullptr);
 }
 
-// Launches on ``stream`` of CUDA device ``device``, one CTA per row of B, and
-// returns cudaGetLastError() (0 = ok).  The device is set here because this
-// library carries its own CUDA runtime, whose current device the caller's
-// runtime does not set.  Returns cudaErrorInvalidValue for shapes the kernel
-// does not take (the wrapper checks them first).
-int fused_z2o(int device, const int32_t* rec, long long rec_stride,
-              const int32_t* c_start, const int32_t* c_skip,
-              const int32_t* c_len, const int32_t* c_qterm,
-              const float* c_score, const int32_t* c_rank, const float* qlen,
-              int B, int NC, int C, int F, int k, float* out_s, int32_t* out_d,
-              void* stream) {
-  if (B == 0) return 0;
-  if (F < 1 || F > kMaxFields || k < 1 || NC < 1 || C < 1 || (C & (C - 1)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)fused_z2o_smem_bytes(NC, C, F);
-  e = cudaFuncSetAttribute(fused_z2o_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
+// The variants by L: threads per block, lanes a thread holds in a radix pass
+// (ceil(L / threads)), and the blocks per SM the registers are held to.  256
+// threads up to 2,048 lanes, so four rows share an SM; 512 beyond.
+#define Z2O_VARIANTS(X) X(256, 8, 4) X(512, 8, 2) X(512, 16, 2)
+
+// Index of the variant for L lanes (L <= 8,192).
+int z2o_variant(int L) { return L <= 2048 ? 0 : L <= 4096 ? 1 : 2; }
+
+Z2oArgs make_z2o_args(const int32_t* rec, long long rec_stride, const int32_t* c_start,
+                      const int32_t* c_skip, const int32_t* c_len, const int32_t* c_qterm,
+                      const float* c_score, const int32_t* c_rank, const float* qlen, int NC,
+                      int C, int F, int k, int key_bits, void* cand) {
   Z2oArgs a;
   a.rec = rec;
   a.rec_stride = rec_stride;
@@ -309,7 +411,78 @@ int fused_z2o(int device, const int32_t* rec, long long rec_stride,
   a.C = C;
   a.F = F;
   a.k = k;
-  fused_z2o_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(a, out_s, out_d);
+  a.key_bits = key_bits;
+  a.cand = (uint64_t*)cand;
+  return a;
+}
+
+// True for shapes the kernel takes with a dynamic shared memory of `smem`
+// bytes that holds the call's layout (`words`: the top-k words there).
+bool z2o_ok(int NC, int C, int F, int k, int key_bits, long long smem, bool words) {
+  const long long L = (long long)NC * C;
+  return F >= 1 && F <= kMaxFields && NC >= 1 && C >= 1 && (C & (C - 1)) == 0 && L <= 8192 &&
+         k >= 1 && k <= L && key_bits >= 1 && key_bits <= 31 &&
+         smem >= z2o_smem(NC, C, F, k, words);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Once per device: lift the kernel's shared-memory cap to what a block may
+// use beside its static shared memory; returns those dynamic bytes (< 0:
+// error).
+int fused_z2o_init(int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  int avail = optin;
+#define STATIC(NT, M, MB)                                                                  \
+  {                                                                                        \
+    cudaFuncAttributes fa;                                                                 \
+    if (cudaFuncGetAttributes(&fa, fused_z2o_kernel<NT, M, MB>) != cudaSuccess) return -1; \
+    const int left = optin - (int)fa.sharedSizeBytes;                                      \
+    avail = left < avail ? left : avail;                                                   \
+  }
+  Z2O_VARIANTS(STATIC)
+#undef STATIC
+#define ALLOW(NT, M, MB)                                                                 \
+  if (cudaFuncSetAttribute(fused_z2o_kernel<NT, M, MB>,                                  \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, avail) != cudaSuccess) \
+    return -1;
+  Z2O_VARIANTS(ALLOW)
+#undef ALLOW
+  return avail;
+}
+
+// Launches on ``stream`` of CUDA device ``device``, one CTA per row of B, and
+// returns cudaGetLastError() (0 = ok).  The device is set here because this
+// library carries its own CUDA runtime, whose current device the caller's
+// runtime does not set.  ``smem`` is the call's dynamic shared memory
+// (z2o_launch), within what fused_z2o_init allowed; ``cand`` is null, or
+// [B, cand_words(k)] words of device memory for a k whose words do not fit
+// beside the row.  Returns cudaErrorInvalidValue for shapes the kernel does
+// not take (the wrapper checks them first).
+int fused_z2o(int device, const int32_t* rec, long long rec_stride, const int32_t* c_start,
+              const int32_t* c_skip, const int32_t* c_len, const int32_t* c_qterm,
+              const float* c_score, const int32_t* c_rank, const float* qlen, int B, int NC,
+              int C, int F, int k, int key_bits, long long smem, void* cand, float* out_s,
+              int32_t* out_d, void* stream) {
+  if (B == 0) return 0;
+  if (!z2o_ok(NC, C, F, k, key_bits, smem, cand == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const Z2oArgs a = make_z2o_args(rec, rec_stride, c_start, c_skip, c_len, c_qterm, c_score,
+                                  c_rank, qlen, NC, C, F, k, key_bits, cand);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int want = z2o_variant(NC * C);
+  int v = 0;
+#define LAUNCH(NT, M, MB) \
+  if (v++ == want) fused_z2o_kernel<NT, M, MB><<<B, NT, (size_t)smem, st>>>(a, out_s, out_d);
+  Z2O_VARIANTS(LAUNCH)
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 

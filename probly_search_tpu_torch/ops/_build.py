@@ -75,11 +75,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_query_occupancy.restype = i
     lib.fused_z2o.argtypes = [
         i, p, ctypes.c_longlong, p, p, p, p, p, p, p,
-        i, i, i, i, i, p, p, p,
+        i, i, i, i, i, i, ctypes.c_longlong, p, p, p, p,
     ]
     lib.fused_z2o.restype = i
-    lib.fused_z2o_smem_bytes.argtypes = [i, i, i]
-    lib.fused_z2o_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_z2o_init.argtypes = [i]
+    lib.fused_z2o_init.restype = i
     lib.merge_topk.argtypes = [
         i, p, p, i, i, i, i, i, i, i, ctypes.c_longlong, p, ctypes.c_longlong, p, p, p,
     ]

@@ -77,10 +77,10 @@ def padded_rows(a, device):
     return torch.from_numpy(buf).to(device)[:, :W]
 
 
-def check_rec(rec, num_fields: int, aligned: bool) -> None:
+def check_rec(rec, num_fields: int) -> None:
     """Raise ValueError unless ``rec`` is an int32[R >= 2 + 2F, P + C] view
-    with unit column stride (``aligned``: rows 16-B aligned, as the full
-    phase's asynchronous copies need; ``padded_rows`` makes such a view)."""
+    with unit column stride and 16-B aligned rows, as every kernel's 16-B
+    loads need (``padded_rows`` makes such a view)."""
     F = num_fields
     if rec.dtype != torch.int32:
         raise ValueError(f"rec has dtype {rec.dtype}, expected torch.int32")
@@ -88,7 +88,7 @@ def check_rec(rec, num_fields: int, aligned: bool) -> None:
         raise ValueError(f"rec must be int32[R >= {2 + 2 * F}, P + C], got {tuple(rec.shape)}")
     if rec.stride(1) != 1 or rec.stride(0) < rec.shape[1]:
         raise ValueError(f"rec needs unit column stride and whole rows, got strides {rec.stride()}")
-    if aligned and (rec.stride(0) % 4 or rec.data_ptr() % 16):
+    if rec.stride(0) % 4 or rec.data_ptr() % 16:
         raise ValueError(
             f"rec rows must be 16-B aligned (row stride {rec.stride(0)} int32): "
             "build it with padded_rows"
@@ -191,6 +191,15 @@ def fused_query_topk_reference(
     )
 
 
+def check_tables(device, shape, ints, floats) -> None:
+    """Raise ValueError unless every (name, tensor) of ``ints`` is int32 and
+    of ``floats`` f32, each contiguous, of ``shape`` and on ``device``."""
+    for dtype, named in ((torch.int32, ints), (torch.float32, floats)):
+        for name, t in named:
+            if t.dtype != dtype or t.shape != shape or t.device != device or not t.is_contiguous():
+                _check(name, t, dtype, shape, device)
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -200,6 +209,44 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_query_args(
+    rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars,
+    *, chunk: int, k: int, num_fields: int, phase: str, key_bits: int,
+) -> None:
+    """Raise ValueError for arguments the kernel does not take: ``rec`` with
+    16-B aligned rows (``padded_rows``; both phases load 16 B at a time),
+    contiguous [B, NC] tables and f32[2F] ``scalars`` on its device, a
+    power-of-two chunk; phase "full": 1 <= k <= L, a chunk of at least 4,
+    1 <= key_bits <= 31; phase "lanes": at most 65,535 rows."""
+    if phase not in launches:
+        raise ValueError(f"unknown phase {phase!r}")
+    B, NC = c_start.shape
+    C, F = chunk, num_fields
+    dev = rec.device
+    check_rec(rec, F)
+    check_tables(
+        dev, c_start.shape,
+        (("c_start", c_start), ("c_skip", c_skip), ("c_len", c_len), ("c_qterm", c_qterm)),
+        (("c_scale", c_scale),),
+    )
+    if scalars.numel() != 2 * F:
+        raise ValueError(f"scalars must hold 2F = {2 * F} values, got {tuple(scalars.shape)}")
+    _check("scalars", scalars, torch.float32, None, dev)
+    if C <= 0 or C & (C - 1):
+        raise ValueError(f"the kernel needs a power-of-two chunk width, got {C}")
+    if phase == "lanes":
+        if B > 65535:
+            raise ValueError(f"lanes phase takes at most 65535 rows, got {B}")
+        return
+    L = NC * C
+    if not 0 < k <= L:
+        raise ValueError(f"k must lie in [1, {L}], got {k}")
+    if C < 4:
+        raise ValueError(f"the full phase needs a chunk width of at least 4, got {C}")
+    if not 1 <= key_bits <= 31:
+        raise ValueError(f"key_bits must lie in [1, 31], got {key_bits}")
 
 
 def fused_query_topk(
@@ -213,9 +260,10 @@ def fused_query_topk(
     chunk tables are [B, NC] (int32, ``c_scale`` f32); ``scalars`` is
     f32[2F] (or [1, 2F]) = (field_avg, fields_boost).  Returns what
     ``fused_query_topk_reference`` returns, computed by the CUDA kernel when
-    the tensors are on a CUDA device.  ``key_bits``: every live key ``doc <<
-    qterm_bits | qterm`` lies below ``2**key_bits`` (the full phase sorts
-    only those bits; the plain version ignores it)."""
+    the tensors are on a CUDA device (``check_query_args`` there).
+    ``key_bits``: every live key ``doc << qterm_bits | qterm`` lies below
+    ``2**key_bits`` (the full phase sorts only those bits; the plain version
+    ignores it)."""
     if rec.device.type == "cpu":
         return fused_query_topk_reference(
             scorer, rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars,
@@ -229,22 +277,11 @@ def fused_query_topk(
             "probly_search_tpu_torch.bm25 runs on a CUDA device (the kernel cannot "
             "call a Python device_score_lanes)"
         )
-    if phase not in launches:
-        raise ValueError(f"unknown phase {phase!r}")
+    check_query_args(rec, c_start, c_skip, c_len, c_qterm, c_scale, scalars, chunk=chunk, k=k,
+                     num_fields=num_fields, phase=phase, key_bits=key_bits)
     B, NC = c_start.shape
     C, F = chunk, num_fields
     dev = rec.device
-    check_rec(rec, F, aligned=phase == "full")
-    tables = {"c_start": c_start, "c_skip": c_skip, "c_len": c_len, "c_qterm": c_qterm}
-    for name, t in tables.items():
-        _check(name, t, torch.int32, (B, NC), dev)
-    _check("c_scale", c_scale, torch.float32, (B, NC), dev)
-    scalars = scalars.reshape(-1)
-    _check("scalars", scalars, torch.float32, (2 * F,), dev)
-    if C <= 0 or C & (C - 1):
-        raise ValueError(f"the kernel needs a power-of-two chunk width, got {C}")
-    if B > 65535 and phase == "lanes":
-        raise ValueError(f"lanes phase takes at most 65535 rows, got {B}")
     L = NC * C
     lib = _build.load()
     excl = int(bool(getattr(scorer, "device_excludes_nonpositive", False)))
@@ -256,12 +293,6 @@ def fused_query_topk(
         B, NC, C, F,
     )
     if phase == "full":
-        if not 0 < k <= L:
-            raise ValueError(f"k must lie in [1, {L}], got {k}")
-        if C < 4:
-            raise ValueError(f"the full phase needs a chunk width of at least 4, got {C}")
-        if not 1 <= key_bits <= 31:
-            raise ValueError(f"key_bits must lie in [1, 31], got {key_bits}")
         ring, smem = full_launch(L, C, F, k, device_smem(index)[1])
         if not ring:
             raise ValueError(f"{L} lanes exceed one block's shared memory ({smem} B)")

@@ -1,4 +1,4 @@
-"""Fused zero-to-one fast kernel (K4): gather + two-key merge + first-valid
+"""Fused zero-to-one fast kernel (K4): gather + ordered sort + first-valid
 reduction + pool sums + top-k per query row.
 
 Counterpart of ``probly_search_tpu/ops/pallas_z2o.py`` (``fused_z2o_topk``).
@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_query import _check, check_rec, device_smem
+from .fused_query import _check, cand_words, check_rec, check_tables
 from .merge import _shift_left, _shift_right, segmented_scan
 
 launches = {"fused_z2o": 0}
@@ -41,8 +41,38 @@ FUSED_Z2O_MAX_FIELDS = 4
 
 _I32_MAX = 2**31 - 1
 _QT_BITS = 4
-# Static shared memory of the kernel, rounded up.
-_SMEM_STATIC = 1024
+# Bits of k1 below the doc: alive << 4 | qterm.
+DOC_SHIFT = _QT_BITS + 1
+# k up to which the kernel takes the top k from its warps' lists of 32
+# (csrc/fused_z2o.cu kListK); past it the top-k words need a buffer.
+LIST_K = 32
+
+
+def _z2o_smem_bytes(L: int, chunk: int, num_fields: int, k: int, words: bool) -> int:
+    """Dynamic shared memory of one K4 block (csrc/fused_z2o.cu z2o_smem):
+    k1 and slot lanes (8 B each), F contribution lanes (4 B each), the chunk
+    positions (int16, rounded up to 16 B) and, when ``words`` and k >
+    ``LIST_K``, the top-k words."""
+    nc = L // chunk
+    held = words and k > LIST_K
+    return (8 + 4 * num_fields) * L + ((2 * nc + 15) & ~15) + (8 * cand_words(k) if held else 0)
+
+
+def z2o_launch(L: int, chunk: int, num_fields: int, k: int, avail: int):
+    """(smem bytes, scratch words a row) of one K4 launch whose blocks may use
+    ``avail`` bytes of dynamic shared memory.  A k past ``LIST_K`` needs
+    ``cand_words(k)`` top-k words a row: beside the row's lanes where they
+    fit (0 scratch words), else in device scratch.  Raises ValueError where
+    even the lanes do not fit."""
+    smem = _z2o_smem_bytes(L, chunk, num_fields, k, words=True)
+    if smem <= avail:
+        return smem, 0
+    smem = _z2o_smem_bytes(L, chunk, num_fields, k, words=False)
+    if smem > avail:
+        raise ValueError(
+            f"{L} lanes x {num_fields} fields need {smem} B of shared memory, one block has {avail}"
+        )
+    return smem, cand_words(k)
 
 
 def gather_lanes(rec, c_start, chunk: int, num_fields: int):
@@ -133,9 +163,56 @@ def fused_z2o_topk_reference(
     return topk_lanes(final, dock, min(k, L))
 
 
+def check_z2o_args(
+    rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, qlen,
+    *, chunk: int, k: int, num_fields: int, key_bits: int,
+) -> None:
+    """Raise ValueError for arguments the kernel does not take: ``rec`` with
+    16-B aligned rows (``fused_query.padded_rows``), contiguous [B, NC]
+    tables on its device, a power-of-two chunk, 1 to 4 fields, at most
+    8,192 lanes, 1 <= k <= L and 1 <= key_bits <= 31."""
+    B, NC = c_start.shape
+    C, F = chunk, num_fields
+    L = NC * C
+    dev = rec.device
+    check_rec(rec, F)
+    check_tables(
+        dev, c_start.shape,
+        (("c_start", c_start), ("c_skip", c_skip), ("c_len", c_len), ("c_qterm", c_qterm),
+         ("c_rank", c_rank)),
+        (("c_score", c_score),),
+    )
+    _check("qlen", qlen, torch.float32, (B,), dev)
+    if C <= 0 or C & (C - 1):
+        raise ValueError(f"the kernel needs a power-of-two chunk width, got {C}")
+    if not 1 <= F <= FUSED_Z2O_MAX_FIELDS:
+        raise ValueError(f"the kernel takes 1 to {FUSED_Z2O_MAX_FIELDS} fields, got {F}")
+    if L > FUSED_Z2O_MAX_LANES:
+        raise ValueError(f"the kernel takes at most {FUSED_Z2O_MAX_LANES} lanes, got {L}")
+    if not 0 < k <= L:
+        raise ValueError(f"k must lie in [1, {L}], got {k}")
+    if not 1 <= key_bits <= 31:
+        raise ValueError(f"key_bits must lie in [1, 31], got {key_bits}")
+
+
+_avail: dict = {}
+
+
+def device_avail(index: int) -> int:
+    """Dynamic shared memory a K4 block may use on CUDA device ``index``,
+    read once; the first call also lifts the kernel's shared-memory cap."""
+    got = _avail.get(index)
+    if got is None:
+        got = _build.load().fused_z2o_init(index)
+        if got < 0:
+            raise RuntimeError(f"fused_z2o_init failed on cuda:{index}")
+        _avail[index] = got
+    return got
+
+
 def fused_z2o_topk(
     rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, qlen,
-    *, chunk: int, k: int, num_fields: int,
+    *, chunk: int, k: int, num_fields: int, key_bits: int = 31,
 ):
     """Run the fused z2o kernel over one shape class.
 
@@ -143,7 +220,9 @@ def fused_z2o_topk(
     chunk tables are [B, NC] (int32; ``c_score`` f32), ``c_rank`` the jobs'
     score ranks, ``qlen`` f32[B].  Returns what ``fused_z2o_topk_reference``
     returns, computed by the CUDA kernel when the tensors are on a CUDA
-    device (1 <= k <= L there)."""
+    device (``check_z2o_args`` there).  ``key_bits``: every live key ``doc
+    << 5 | alive << 4 | qterm`` lies below ``2**key_bits`` (the kernel sorts
+    only those bits; the plain version ignores it)."""
     if rec.device.type == "cpu":
         return fused_z2o_topk_reference(
             rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, qlen,
@@ -151,36 +230,22 @@ def fused_z2o_topk(
         )
     if rec.device.type != "cuda":
         raise ValueError(f"fused_z2o_topk runs on cpu or cuda, not {rec.device}")
+    check_z2o_args(rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, qlen,
+                   chunk=chunk, k=k, num_fields=num_fields, key_bits=key_bits)
     B, NC = c_start.shape
     C, F = chunk, num_fields
-    L = NC * C
     dev = rec.device
-    check_rec(rec, F, aligned=False)
-    for name, t in (("c_start", c_start), ("c_skip", c_skip), ("c_len", c_len),
-                    ("c_qterm", c_qterm), ("c_rank", c_rank)):
-        _check(name, t, torch.int32, (B, NC), dev)
-    _check("c_score", c_score, torch.float32, (B, NC), dev)
-    _check("qlen", qlen, torch.float32, (B,), dev)
-    if C <= 0 or C & (C - 1):
-        raise ValueError(f"the kernel needs a power-of-two chunk width, got {C}")
-    if not 1 <= F <= FUSED_Z2O_MAX_FIELDS:
-        raise ValueError(f"the kernel takes 1 to {FUSED_Z2O_MAX_FIELDS} fields, got {F}")
-    if not 0 < k <= L:
-        raise ValueError(f"k must lie in [1, {L}], got {k}")
-    if L >= 1 << 14:
-        raise ValueError(f"the lane index packs into 14 bits; {L} lanes do not fit")
-    lib = _build.load()
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    smem_max = device_smem(index)[0]
-    if lib.fused_z2o_smem_bytes(NC, C, F) > smem_max - _SMEM_STATIC:
-        raise ValueError(f"{L} lanes x {F} fields exceed one block's shared memory ({smem_max} B)")
+    smem, words = z2o_launch(NC * C, C, F, k, device_avail(index))
+    lib = _build.load()
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_d = torch.empty((B, k), dtype=torch.int32, device=dev)
+    cand = torch.empty((B, words), dtype=torch.int64, device=dev) if words else None
     err = lib.fused_z2o(
         index, rec.data_ptr(), rec.stride(0), c_start.data_ptr(), c_skip.data_ptr(),
         c_len.data_ptr(), c_qterm.data_ptr(), c_score.data_ptr(), c_rank.data_ptr(),
-        qlen.data_ptr(), B, NC, C, F, k, out_s.data_ptr(), out_d.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        qlen.data_ptr(), B, NC, C, F, k, key_bits, smem, None if cand is None else cand.data_ptr(),
+        out_s.data_ptr(), out_d.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"fused_z2o launch failed: {lib.fused_query_error_string(err).decode()}")

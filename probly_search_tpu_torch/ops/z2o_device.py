@@ -42,7 +42,9 @@ from ..index.device import (
 from ..index.segment import probe_terms_fixed
 from ..models import zero_to_one as _z2o
 from ..utils.metrics import metrics
+from .fused_merge import key_bits_for
 from .fused_z2o import (
+    DOC_SHIFT,
     FUSED_Z2O_MAX_FIELDS,
     FUSED_Z2O_MAX_LANES,
     contribution,
@@ -129,20 +131,20 @@ def fused_route(num_chunks: int, chunk: int, num_fields: int, fused_ok: bool) ->
 
 
 def z2o_fast_step(rec, jobs, qlen, *, chunk: int, k: int, num_fields: int, num_chunks: int,
-                  fused_ok: bool = True):
+                  fused_ok: bool = True, key_bits: int = 31):
     """Fast zero-to-one program for queries with no shared expansion node.
 
     ``jobs`` int32[B, NJ, 4] carries the per-query dense score rank in word 2
     (packed by ``z2o_query_batch_async``), the kernel's stable-order
-    substitute.  Classes that ``fused_route`` admits launch K4; every other
-    class runs the staged program.  Returns (f32[B, k'], int32[B, k']),
-    k' = min(k, L)."""
+    substitute.  Classes that ``fused_route`` admits launch K4 (``key_bits``
+    bounds its keys, ``fused_z2o_topk``); every other class runs the staged
+    program.  Returns (f32[B, k'], int32[B, k']), k' = min(k, L)."""
     C, NC, F = chunk, num_chunks, num_fields
     c_start, c_skip, c_len, c_qterm, c_rank, c_score = expand_chunks_z2o(jobs, C, NC)
     if fused_route(NC, C, F, fused_ok):
         return fused_z2o_topk(
             rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, qlen,
-            chunk=C, k=min(k, NC * C), num_fields=F,
+            chunk=C, k=min(k, NC * C), num_fields=F, key_bits=key_bits,
         )
     return z2o_staged_fast_step(
         rec, c_start, c_skip, c_len, c_qterm, c_score, qlen, chunk=C, k=k, num_fields=F
@@ -542,11 +544,12 @@ def pack_classes(dix, B, jquery, words, qlen, nc_bucket, njobs, fastq, srank):
 
 def _z2o_window_step(
     rec, words_flat, qlen_flat, *, chunk: int, k: int, num_fields: int, class_specs,
-    fused_ok: bool = True, fmt: str = "f32",
+    fused_ok: bool = True, fmt: str = "f32", key_bits: int = 31,
 ):
     """Every z2o shape class of a window, one after another on the device,
     into one packed result (see ``index.device.pack_result_rows``).  Only the
-    first ``b_out`` rows of a class are computed (the rest are padding)."""
+    first ``b_out`` rows of a class are computed (the rest are padding);
+    ``key_bits`` bounds K4's keys."""
     outs = []
     off = 0
     qoff = 0
@@ -559,7 +562,7 @@ def _z2o_window_step(
         kk = min(k, nc * chunk * num_fields)
         kw = dict(chunk=chunk, k=kk, num_fields=num_fields, num_chunks=nc)
         if fast:
-            s, d = z2o_fast_step(rec, jobs, ql, fused_ok=fused_ok, **kw)
+            s, d = z2o_fast_step(rec, jobs, ql, fused_ok=fused_ok, key_bits=key_bits, **kw)
         else:
             s, d = z2o_step(rec, jobs, ql, **kw)
         if s.shape[1] < k:
@@ -677,6 +680,7 @@ def z2o_query_batch_async(dix, queries, tokenizer, top_k, scorer=None, fmt=None)
             class_specs=tuple(class_specs),
             fused_ok=dix.num_slots < (1 << 26),
             fmt=fmt,
+            key_bits=key_bits_for(dix.num_slots, DOC_SHIFT),
         )
     return PendingBatch(
         dix, B, packed=packed, layout=layout, host_rows=host_rows, fmt=fmt, k=k,

@@ -22,10 +22,12 @@ from probly_search_tpu_torch.ops import fused_query as fq
 from probly_search_tpu_torch.ops.fused_query import padded_rows
 from probly_search_tpu_torch.ops import fused_z2o as fz
 from probly_search_tpu_torch.ops import launch_probe as lp
+from probly_search_tpu_torch.ops.fused_merge import key_bits_for
 from probly_search_tpu_torch.testing import assert_topk_agree
 
 from .torch_util import (
-    QB, make_rec, make_tables, make_z2o_tables, merge_edge_rows, merge_rows, to_torch,
+    QB, Z2O_EDGES, Z2O_ROW0_EDGES, make_rec, make_tables, make_z2o_tables, merge_edge_rows,
+    merge_rows, to_torch, z2o_edge,
 )
 
 
@@ -178,6 +180,101 @@ def test_z2o_kernel_matches_plain_on_cuda(C, NC, F):
     ps, pd = fz.fused_z2o_topk_reference(rec_t, *tables, **kw)
     assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
     assert (kd >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(Z2O_EDGES))
+def test_z2o_kernel_edges_on_cuda(kind):
+    """K4 at its edges (tests/torch_util.z2o_edge): k = L = 8,192 with four
+    fields (the top-k words in scratch), one live lane, a row of dead docs,
+    alive docs whose postings all have tf 0 (score 0, returned), equal
+    contributions (ties to the lowest doc, exactly as the plain version),
+    doc slots near 2^26 (31 key bits), C = 128 over 64 chunks, C = 32 over
+    256 (chunk tables read from device memory), C = 2 (scalar loads);
+    against the plain version, repeat runs bit-equal."""
+    _cuda()
+    rec, tables, C, F, k, slots = z2o_edge(kind)
+    rec_t = padded_rows(rec, "cuda")
+    tables = to_torch(tables, "cuda")
+    kw = dict(chunk=C, k=k, num_fields=F)
+    key_bits = key_bits_for(slots, fz.DOC_SHIFT)
+    ks, kd = fz.fused_z2o_topk(rec_t, *tables, **kw, key_bits=key_bits)
+    ks2, kd2 = fz.fused_z2o_topk(rec_t, *tables, **kw, key_bits=key_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ks2) and torch.equal(kd, kd2)
+    ps, pd = fz.fused_z2o_topk_reference(rec_t, *tables, **kw)
+    assert_topk_agree(ks.cpu().numpy(), kd.cpu().numpy(), ps.cpu().numpy(), pd.cpu().numpy())
+    # bit-equal where the sums are exact: every row of "ties", the edge row 0
+    rows = slice(None) if kind == "ties" else 0 if kind in Z2O_ROW0_EDGES else None
+    if rows is not None:
+        assert torch.equal(kd[rows], pd[rows]) and torch.equal(ks[rows], ps[rows])
+    assert (kd >= 0).any()
+
+
+@pytest.mark.cuda
+def test_z2o_kernel_refuses_unaligned_rec_on_cuda():
+    _cuda()
+    rng = np.random.default_rng(1)
+    rec, starts, lens = make_rec(rng, F=1, C=128)
+    tables = to_torch(make_z2o_tables(rng, starts, lens, 8, 2, C=128), "cuda")
+    buf = torch.zeros((rec.shape[0], rec.shape[1] + 1), dtype=torch.int32, device="cuda")
+    buf[:, 1:] = torch.from_numpy(rec).cuda()
+    with pytest.raises(ValueError, match="16-B aligned"):
+        fz.fused_z2o_topk(buf[:, 1:], *tables, chunk=128, k=10, num_fields=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NC", [17, 24, 32])
+def test_lanes_kernel_matches_plain_on_cuda(NC):
+    """K3 (phase "lanes") at NC 17, 24 and 32 over 1,024-lane chunks, with
+    dead chunks, an empty row, alignment skips and trailing pads: keys
+    bit-equal, scores within the tolerance."""
+    _cuda()
+    rng = np.random.default_rng(NC)
+    rec, starts, lens = make_rec(rng, n_docs=3000, n_terms=400, C=1024)
+    tables = to_torch(make_tables(rng, starts, lens, 40, NC, C=1024), "cuda")
+    rec_t = padded_rows(rec, "cuda")
+    scalars = torch.tensor([6.5, 1.5], dtype=torch.float32, device="cuda")
+    kw = dict(chunk=1024, k=10, qterm_bits=QB, num_fields=1, phase="lanes")
+    ks, kk = fq.fused_query_topk(bm25.new(), rec_t, *tables, scalars, **kw)
+    torch.cuda.synchronize()
+    ps, pk = fq.fused_query_topk_reference(bm25.new(), rec_t, *tables, scalars, **kw)
+    assert torch.equal(kk, pk)
+    torch.testing.assert_close(ks, ps, rtol=2e-5, atol=1e-6)
+    assert (kk == -1).any() and (kk == 2**31 - 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,NC,align", [(2, 40, 1), (32, 70, 4)])
+def test_lanes_kernel_narrow_chunks_on_cuda(C, NC, align):
+    """K3 with chunks narrower than 4 lanes (scalar loads and stores) and of
+    32 lanes, against the plain version: keys bit-equal."""
+    _cuda()
+    rng = np.random.default_rng(C)
+    rec, starts, lens = make_rec(rng, F=2, n_docs=3000, n_terms=400, C=C)
+    tables = to_torch(make_tables(rng, starts, lens, 24, NC, C=C, align=align), "cuda")
+    rec_t = padded_rows(rec, "cuda")
+    scalars = torch.tensor([6.5, 3.0, 1.5, 0.5], dtype=torch.float32, device="cuda")
+    kw = dict(chunk=C, k=10, qterm_bits=QB, num_fields=2, phase="lanes")
+    ks, kk = fq.fused_query_topk(bm25.new(), rec_t, *tables, scalars, **kw)
+    torch.cuda.synchronize()
+    ps, pk = fq.fused_query_topk_reference(bm25.new(), rec_t, *tables, scalars, **kw)
+    assert torch.equal(kk, pk)
+    torch.testing.assert_close(ks, ps, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_lanes_kernel_refuses_unaligned_rec_on_cuda():
+    _cuda()
+    rng = np.random.default_rng(2)
+    rec, starts, lens = make_rec(rng, C=1024)
+    tables = to_torch(make_tables(rng, starts, lens, 4, 17, C=1024), "cuda")
+    buf = torch.zeros((rec.shape[0], rec.shape[1] + 1), dtype=torch.int32, device="cuda")
+    buf[:, 1:] = torch.from_numpy(rec).cuda()
+    scalars = torch.tensor([6.5, 1.5], dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="16-B aligned"):
+        fq.fused_query_topk(bm25.new(), buf[:, 1:], *tables, scalars, chunk=1024, k=10,
+                            qterm_bits=QB, num_fields=1, phase="lanes")
 
 
 @pytest.mark.cuda

@@ -179,30 +179,70 @@ def test_padded_rows_keep_shape_and_values():
     r = fq.padded_rows(a, "cpu")
     assert tuple(r.shape) == (4, 1001) and r.stride() == (1024, 1)
     np.testing.assert_array_equal(r.numpy(), a)
-    fq.check_rec(r, 1, aligned=True)
+    fq.check_rec(r, 1)
 
 
 @pytest.mark.parametrize(
-    "make,aligned,ok",
+    "make,ok",
     [
-        (lambda: fq.padded_rows(np.zeros((4, 1001), np.int32), "cpu"), True, True),
-        (lambda: fq.padded_rows(np.zeros((8, 300), np.int32), "cpu"), True, True),
-        (lambda: _rec((4, 1000)), True, True),  # contiguous, 16-B rows
-        (lambda: _rec((4, 1001)), True, False),  # rows not 16-B aligned
-        (lambda: _rec((4, 1001)), False, True),  # K3 / K4 read any row stride
-        (lambda: _rec((1001, 4)).t(), False, False),  # column stride != 1
-        (lambda: _rec((4, 2048))[:, ::2], False, False),
-        (lambda: _rec((4, 64)).to(torch.int64), False, False),
-        (lambda: _rec((3, 64)), False, False),  # too few record rows
+        (lambda: fq.padded_rows(np.zeros((4, 1001), np.int32), "cpu"), True),
+        (lambda: fq.padded_rows(np.zeros((8, 300), np.int32), "cpu"), True),
+        (lambda: _rec((4, 1000)), True),  # contiguous, 16-B rows
+        (lambda: _rec((4, 1001)), False),  # rows not 16-B aligned: K1, K3 and K4 refuse it
+        (lambda: _rec((4, 1004))[:, 1:], False),  # 16-B stride, but the rows start 4 B in
+        (lambda: _rec((1001, 4)).t(), False),  # column stride != 1
+        (lambda: _rec((4, 2048))[:, ::2], False),
+        (lambda: _rec((4, 64)).to(torch.int64), False),
+        (lambda: _rec((3, 64)), False),  # too few record rows
     ],
 )
-def test_check_rec(make, aligned, ok):
+def test_check_rec(make, ok):
     rec = make()
     if ok:
-        fq.check_rec(rec, 1, aligned=aligned)
+        fq.check_rec(rec, 1)
     else:
         with pytest.raises(ValueError):
-            fq.check_rec(rec, 1, aligned=aligned)
+            fq.check_rec(rec, 1)
+
+
+@pytest.mark.parametrize("phase", ["full", "lanes"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_check_query_args_needs_aligned_rec(phase, aligned):
+    """Both phases load 16 B of a record row at a time (K3 since its
+    redesign), so both refuse a ``rec`` whose rows are not 16-B aligned."""
+    rng = np.random.default_rng(9)
+    rec, starts, lens = make_rec(rng)
+    tables = to_torch(make_tables(rng, starts, lens, 8, 3))
+    rec_t = fq.padded_rows(rec, "cpu")
+    if not aligned:
+        buf = torch.zeros((rec.shape[0], rec.shape[1] + 1), dtype=torch.int32)
+        buf[:, 1:] = torch.from_numpy(rec)
+        rec_t = buf[:, 1:]
+    scalars = torch.tensor([6.5, 1.5], dtype=torch.float32)
+    kw = dict(chunk=128, k=10, num_fields=1, phase=phase, key_bits=31)
+    if aligned:
+        fq.check_query_args(rec_t, *tables, scalars, **kw)
+    else:
+        with pytest.raises(ValueError, match="16-B aligned"):
+            fq.check_query_args(rec_t, *tables, scalars, **kw)
+
+
+def test_check_query_args_checks_rec_on_every_call():
+    """A ``rec`` that passed once and whose storage then moves to an
+    unaligned view is refused on the next call: nothing about it is kept
+    from one call to the next."""
+    rng = np.random.default_rng(10)
+    rec, starts, lens = make_rec(rng)
+    tables = to_torch(make_tables(rng, starts, lens, 8, 3))
+    rec_t = fq.padded_rows(rec, "cpu")
+    scalars = torch.tensor([6.5, 1.5], dtype=torch.float32)
+    kw = dict(chunk=128, k=10, num_fields=1, phase="lanes", key_bits=31)
+    fq.check_query_args(rec_t, *tables, scalars, **kw)
+    R, W = rec.shape
+    buf = torch.zeros(R * (W + 1) + 1, dtype=torch.int32)
+    rec_t.set_(buf.untyped_storage(), 1, (R, W), (W + 1, 1))
+    with pytest.raises(ValueError, match="16-B aligned"):
+        fq.check_query_args(rec_t, *tables, scalars, **kw)
 
 
 @pytest.mark.parametrize(

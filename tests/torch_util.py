@@ -10,7 +10,7 @@ QB = 4  # qterm bits of the merge key
 def make_rec(rng, F=1, n_docs=400, n_terms=120, C=128):
     """Posting records int32[R, P + C]: ascending doc runs per term, 5% of
     docs latently dead.  Few docs, so chunks of one row share docs."""
-    R = 4 if 2 + 2 * F <= 4 else 8
+    R = 4 if 2 + 2 * F <= 4 else -(-(2 + 2 * F) // 8) * 8
     doc_alive = (rng.random(n_docs) > 0.05).astype(np.int32)
     doc_len = rng.integers(2, 12, (n_docs, F)).astype(np.float32)
     lens = rng.integers(1, 300, n_terms)
@@ -27,14 +27,14 @@ def make_rec(rng, F=1, n_docs=400, n_terms=120, C=128):
     return rec, starts, lens
 
 
-def make_tables(rng, starts, lens, B, NC, C=128, max_len=None):
+def make_tables(rng, starts, lens, B, NC, C=128, max_len=None, align=128):
     """[B, NC] chunk tables: slices of one term's run each (leading and
     trailing pads, payloads of at most ``max_len`` lanes), 20% dead chunks,
-    row 5 empty."""
+    row 5 empty.  Chunk starts are multiples of ``align`` (at most C)."""
     t = rng.integers(0, len(starts), (B, NC))
     o = (rng.random((B, NC)) * lens[t]).astype(np.int64)
     col = starts[t] + o
-    c_start = col // 128 * 128
+    c_start = col // align * align
     c_skip = col - c_start
     room = np.minimum(lens[t] - o, C - c_skip)
     c_len = np.minimum(room, rng.integers(1, (max_len or C) + 1, (B, NC)))
@@ -57,11 +57,14 @@ def score_ranks(c_score):
     return np.stack([np.searchsorted(np.unique(-row), -row) for row in c_score]).astype(np.int32)
 
 
-def make_z2o_tables(rng, starts, lens, B, NC, C=128, scores=(1.0, 0.75, 2.0 / 3.0, 0.5)):
+def make_z2o_tables(
+    rng, starts, lens, B, NC, C=128, scores=(1.0, 0.75, 2.0 / 3.0, 0.5), align=128
+):
     """``make_tables`` for the fused z2o kernel: (c_start, c_skip, c_len,
     c_qterm, c_score, c_rank, qlen), entry scores drawn from ``scores`` so
     that equal scores share a rank."""
-    c_start, c_skip, c_len, c_qterm, _scale = make_tables(rng, starts, lens, B, NC, C=C)
+    tables = make_tables(rng, starts, lens, B, NC, C=C, align=align)
+    c_start, c_skip, c_len, c_qterm, _scale = tables
     c_score = rng.choice(np.asarray(scores, np.float32), (B, NC))
     qlen = rng.integers(1, 5, B).astype(np.float32)
     return [c_start, c_skip, c_len, c_qterm, c_score, score_ranks(c_score), qlen]
@@ -133,3 +136,85 @@ def merge_edge_rows(rng, kind, rows, L):
     elif kind != "pads":
         raise ValueError(kind)
     return key, val
+
+
+# K4's edge shapes: kind -> (C, NC, F, B, k).
+Z2O_EDGES = {
+    "k_eq_L": (1024, 8, 4, 8, 8192),  # the largest shared memory; top-k words in scratch
+    "one_lane": (128, 4, 2, 16, 10),
+    "dead_docs": (128, 4, 2, 16, 10),
+    "tf_zero": (128, 4, 2, 16, 10),
+    "ties": (128, 4, 2, 16, 10),
+    "high_slots": (128, 4, 2, 16, 10),
+    "c128": (128, 64, 2, 16, 10),
+    "c32": (32, 256, 1, 16, 10),  # past 64 chunks: the tables stay in device memory
+    "c2": (2, 64, 2, 16, 10),  # a chunk narrower than one 16-B load: scalar loads
+}
+# The edges whose row 0 alone holds the case (the other rows are seeded).
+Z2O_ROW0_EDGES = ("one_lane", "dead_docs", "tf_zero")
+# Slot count of the "high_slots" edge: the most the fused kernel takes
+# (fewer than 2^26), so its keys use all 31 bits.
+Z2O_HIGH_SLOTS = (1 << 26) - 1
+
+
+def _slice(starts, lens, t, o, n, C):
+    """Chunk-table entry (start, skip, len) of ``n`` postings of term ``t``
+    from its ``o``-th on, within one chunk of C lanes."""
+    col = int(starts[t] + o)
+    start = col // 128 * 128
+    skip = col - start
+    return start, skip, int(min(n, lens[t] - o, C - skip))
+
+
+def z2o_edge(kind, seed=0):
+    """Inputs of one K4 edge case: (rec int32[R, P + C], [c_start, c_skip,
+    c_len, c_qterm, c_score, c_rank, qlen], C, F, k, num_slots), over
+    ``make_rec`` and ``make_z2o_tables`` with these changes:
+
+      "k_eq_L"     C 1,024, NC 8, four fields, k = L = 8,192
+      "one_lane"   row 0 holds one live lane
+      "dead_docs"  row 0 reads only term 0, whose docs are all latently dead
+      "tf_zero"    row 0 reads only term 1, whose postings have tf 0 in every
+                   field (alive docs that score 0)
+      "ties"       tf 1, field length 1, qlen 1 and entry score 1.0
+                   everywhere: every contribution is 1.0, so docs tie
+      "high_slots" doc slots up to 2^26 - 2 (keys use 31 bits)
+      "c128"       C 128, NC 64 (L = 8,192)
+      "c32"        C 32, NC 256, chunk starts multiples of 4
+      "c2"         C 2, NC 64, chunk starts anywhere"""
+    C, NC, F, B, k = Z2O_EDGES[kind]
+    rng = np.random.default_rng(seed)
+    n_docs = 4000
+    rec, starts, lens = make_rec(rng, F=F, n_docs=n_docs, n_terms=200, C=C)
+    P = int(lens.sum())
+    alive = rec[1 + 2 * F]
+    if kind == "dead_docs":
+        dead = rec[0, starts[0] : starts[0] + lens[0]]
+        alive[:P][np.isin(rec[0, :P], dead)] = 0
+    if kind == "tf_zero":
+        rec[1 : 1 + F, starts[1] : starts[1] + lens[1]] = 0
+    if kind == "ties":
+        rec[1 : 1 + F, :P] = 1
+        rec[1 + F : 1 + 2 * F, :P] = np.float32(1.0).view(np.int32)
+    num_slots = n_docs
+    if kind == "high_slots":
+        rec[0, :P] += Z2O_HIGH_SLOTS - n_docs
+        num_slots = Z2O_HIGH_SLOTS
+    align = {"c32": 4, "c2": 1}.get(kind, 128)
+    tables = make_z2o_tables(rng, starts, lens, B, NC, C=C, align=align)
+    c_start, c_skip, c_len, c_qterm, c_score, _rank, qlen = tables
+    if kind in ("one_lane", "dead_docs", "tf_zero"):
+        c_start[0], c_skip[0], c_len[0] = 0, 0, 0
+        if kind == "one_lane":
+            o = int(np.flatnonzero(alive[starts[2] : starts[2] + lens[2]] > 0)[0])
+            c_start[0, 1], c_skip[0, 1], c_len[0, 1] = _slice(starts, lens, 2, o, 1, C)
+        else:
+            t = 0 if kind == "dead_docs" else 1
+            for c in range(NC):
+                o = int(c * lens[t] // NC)
+                c_start[0, c], c_skip[0, c], c_len[0, c] = _slice(starts, lens, t, o, lens[t], C)
+    if kind == "ties":
+        c_score[:] = 1.0
+        qlen[:] = 1.0
+    tables = [c_start, c_skip, c_len, c_qterm, c_score, score_ranks(c_score), qlen]
+    return rec, tables, C, F, k, num_slots

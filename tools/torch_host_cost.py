@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Host cost per call of the port's merge kernel wrapper (K5) and of the
+"""Host cost per call of the port's kernel wrappers (K3, K4, K5) and of the
 launch probe (P1), on one CUDA card.
 
     python3 tools/torch_host_cost.py [--root DIR] [--calls N] [--rounds R]
@@ -9,14 +9,17 @@ checkouts can be compared on one card in one run, in turns
 (parent, change, change, parent).  For each of R rounds it enqueues N calls
 without synchronising and reads the host clock (the enqueue cost: what a
 call holds the host), then synchronises (host clock to drained).  K5 runs on
-B = 2 rows of 3,072 unsorted lanes, k = 10 (a small term-range class); P1 on
-its f32[8, 512].  Prints the card's name and power limit, then one JSON line
-of medians in microseconds per call.
+B = 2 rows of 3,072 unsorted lanes, k = 10 (a small term-range class); K3
+(phase "lanes") on 4 rows of 24 chunks of 1,024 lanes; K4 on 16 rows of 2
+chunks of 1,024 lanes, 2 fields, k = 10 (tests/torch_util.py's seeded
+tables); P1 on its f32[8, 512].  Prints the card's name and power limit,
+then one JSON line of medians in microseconds per call.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -36,8 +39,12 @@ def main():
     sys.path.insert(0, root)
     import torch
 
+    from probly_search_tpu_torch import bm25
     from probly_search_tpu_torch.ops import fused_merge as fm
+    from probly_search_tpu_torch.ops import fused_query as fq
+    from probly_search_tpu_torch.ops import fused_z2o as fz
     from probly_search_tpu_torch.ops import launch_probe as lp
+    from tests.torch_util import make_rec, make_tables, make_z2o_tables, to_torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_host_cost: no CUDA device is available")
@@ -51,7 +58,21 @@ def main():
     key = torch.from_numpy(key).cuda()
     score = torch.from_numpy(rng.uniform(0.5, 2.0, (2, L)).astype(np.float32)).cuda()
     x = torch.zeros(lp.SHAPE, device="cuda")
+    C = 1024
+    rec1, starts, lens = make_rec(rng, F=1, n_docs=3000, n_terms=400, C=C)
+    rec1 = fq.padded_rows(rec1, "cuda")
+    lanes_t = to_torch(make_tables(rng, starts, lens, 4, 24, C=C), "cuda")
+    scal = torch.tensor([6.5, 1.5], dtype=torch.float32, device="cuda")
+    rec2, starts, lens = make_rec(rng, F=2, n_docs=3000, n_terms=400, C=C)
+    rec2 = fq.padded_rows(rec2, "cuda")
+    z2o_t = to_torch(make_z2o_tables(rng, starts, lens, 16, 2, C=C), "cuda")
+    takes_bits = "key_bits" in inspect.signature(fz.fused_z2o_topk).parameters
+    extra = {"key_bits": 17} if takes_bits else {}  # make_rec's 3,000 docs
+    scorer = bm25.new()
     calls = {
+        "lanes": lambda: fq.fused_query_topk(scorer, rec1, *lanes_t, scal, chunk=C, k=10,
+                                             qterm_bits=4, num_fields=1, phase="lanes"),
+        "z2o": lambda: fz.fused_z2o_topk(rec2, *z2o_t, chunk=C, k=10, num_fields=2, **extra),
         "merge": lambda: fm.merge_scores_topk_fused(key, score, 10, 4),
         "probe": lambda: lp.probe_add(x),
         "torch_add": lambda: torch.add(x, 1.0),
