@@ -30,14 +30,29 @@ Phases (any failure raises, so the exit code is not 0):
      the kernel launches per call (a CUDA graph capture of one call),
      asserted equal to the path's count;
   2p. the launch probe (P1) against x + 1, bit-equal, over chains of 1, 4
-     and 16 launches: per-launch time from the host clock and CUDA events;
+     and 16 launches: per-launch time from the host clock and CUDA events,
+     launched one by one and as one captured CUDA graph a chain, beside
+     torch.add chains run the same two ways;
   3. the BM25 main path at real size: top-10 over the 1,000,000-doc bench
      corpus (bench.py's generator), two 16,384-query windows, 8 windows
      served through DeviceIndex.query_batch_async with a depth-4 pipeline
      and paired late drains; launch counts, ms/window, QPS, recall@10
      against the f64 oracle on 256 queries, and every class of the first
      window held kernel against plain on its real tables (K1; K3 and K5 on
-     the wide classes; K3's device time beside its CUDA-event time);
+     the wide classes; K1's and K3's device times beside their CUDA-event
+     times);
+  3g. the graph path over that index: a second DeviceIndex loads
+     benchmarks/bench_templates.json and prewarms (one CUDA graph per
+     template; seconds and memory reserved); 8 pipelined windows served
+     eager, graph, graph, eager (ms/window, p50, host phases, replays,
+     launches); the graph path's slots equal to the eager path's, no
+     refreeze, recall@10 1.0; the window's replay time with the L2 cold and
+     warm; each path's kernels per window under torch.profiler beside the
+     launch tally and the captured step's kernel nodes; a pair of windows
+     drained jointly (fetch_windows_jointly) against two drained apart;
+  3c. a user's one-phase scorer (TfBoost, tests/torch_util.py) on that
+     index: one window of 256 queries through staged lanes + K5, f32 rows
+     against the f64 host oracle;
   3r. term-range jobs on that index: phase 3's first window with every 64th
      query's first term cut to its first four characters (a prefix of 100
      terms) and the last three queries replaced by t0, t00 and t1, served
@@ -92,7 +107,7 @@ from probly_search_tpu_torch.ops import launch_probe as lp  # noqa: E402
 from probly_search_tpu_torch.ops import z2o_device as pz  # noqa: E402
 from probly_search_tpu_torch.ops.fused_query import padded_rows  # noqa: E402
 from probly_search_tpu_torch.testing import ATOL, RTOL, assert_topk_agree  # noqa: E402
-from tests.torch_util import Z2O_EDGES, Z2O_ROW0_EDGES, merge_edge_rows, z2o_edge  # noqa: E402
+from tests.torch_util import Z2O_EDGES, Z2O_ROW0_EDGES, TfBoost, merge_edge_rows, z2o_edge  # noqa: E402
 
 SEED = 0
 C = 1024
@@ -176,17 +191,12 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn`` with a cold L2: the call captured
-    into a CUDA graph, and before each replay a write of four times the
-    card's L2 evicts what earlier replays left there; the replay alone is
-    timed with CUDA events (median of ``reps``).  The write is queued
-    first, so the host's launch of the replay hides behind it."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
-        fn()
+def replay_ms(g, reps: int = 20) -> float:
+    """Device time of one replay of CUDA graph ``g`` with a cold L2: before
+    each replay a write of four times the card's L2 evicts what earlier
+    replays left there; the replay alone is timed with CUDA events (median
+    of ``reps``).  The write is queued first, so the host's launch of the
+    replay hides behind it."""
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
     flush = torch.empty(l2, dtype=torch.int32, device="cuda")
     g.replay()
@@ -199,9 +209,27 @@ def graph_ms(fn, reps: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    g.reset()
     del flush
     return float(np.median(times))
+
+
+def capture(fn):
+    """``fn`` (run once eagerly first) captured into a CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    return g
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with a cold L2: the call captured
+    into a CUDA graph, its replay timed by ``replay_ms``."""
+    g = capture(fn)
+    ms = replay_ms(g, reps)
+    g.reset()
+    return ms
 
 
 # --------------------------------------------------------------------- #
@@ -512,6 +540,23 @@ def phase_probe():
             log(f"probe chain of {n:2d} {name:7s}: {host_us:.3f} us/launch host clock, "
                 f"{1e3 * ev_ms:.3f} us/launch CUDA events")
     launches = lp.launches["probe_add"]
+    # The same chains, each captured as one CUDA graph: a replay launches
+    # the chain's kernels with one host enqueue for the whole chain.
+    for n in PROBE_CHAINS:
+        for name, fn in (("kernel", lp.probe_add), ("library", lambda y: torch.add(y, 1.0))):
+            g = capture(lambda fn=fn, n=n: chain(fn, n))
+            g.replay()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                g.replay()
+            torch.cuda.synchronize()
+            host_us = 1e6 * (time.perf_counter() - t) / (reps * n)
+            ev_us = 1e3 * cuda_ms(g.replay, reps=reps) / n
+            g.reset()
+            log(f"probe chain of {n:2d} {name:7s} as one CUDA graph: {host_us:.3f} us/launch host "
+                f"clock, {ev_us:.3f} us/launch CUDA events")
+    lp.launches["probe_add"] = launches  # the captures launched nothing
     n = PROBE_CHAINS[-1]
     bound_ms, by = bound(0, 0, x.numel() * 4, x.numel() * 4, x.numel())
     return launches, [per["kernel", n], per["plain", n], bound_ms, by], per["library", n]
@@ -630,6 +675,7 @@ def check_window_classes(dix, dispatches, scorer, k):
     errs = {"full": 0.0, "lanes": 0.0, "merge_topk": 0.0}
     times = {key: [0.0, 0.0, 0.0, "bytes"] for key in errs}
     scalars = torch.cat([dix.field_avg, torch.ones(1, device="cuda")])
+    k1_dev = 0.0
     for idxs, jobs_flat, nc, nj, _rng in dispatches:
         jobs = torch.from_numpy(jobs_flat).cuda().reshape(jobs_flat.shape[0], nj, 3)
         tables = pdev.expand_chunks(jobs, dix.CHUNK, nc)
@@ -648,7 +694,12 @@ def check_window_classes(dix, dispatches, scorer, k):
         occ = ""
         if phase == "full":
             ring, smem = fq.full_launch(nc * dix.CHUNK, dix.CHUNK, 1, kk, fq.device_smem(0)[1])
-            occ = (f", {_build.load().fused_query_occupancy(0, nc * dix.CHUNK, smem)} CTAs/SM "
+            dev_ms = graph_ms(lambda: fq.fused_query_topk(
+                scorer, dix.rec, *tables, scalars, chunk=dix.CHUNK, k=kk, qterm_bits=QB,
+                num_fields=1, key_bits=dix._key_bits))
+            k1_dev += dev_ms
+            occ = (f", device {dev_ms:.4f} ms (CUDA graph replay, L2 cold), "
+                   f"{_build.load().fused_query_occupancy(0, nc * dix.CHUNK, smem)} CTAs/SM "
                    f"({smem} B shared, ring {ring})")
         log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({by}){occ}")
@@ -658,6 +709,9 @@ def check_window_classes(dix, dispatches, scorer, k):
             add_merge(errs, times, check_merge(lk, ls, kk, f"{label} merge", run=dix.CHUNK,
                                                excl=True, max_seg=nc, key_bits=dix._key_bits,
                                                launches=True))
+    log(f"K1 over the window's K1 classes: {times['full'][0]:.4f} ms CUDA events, {k1_dev:.4f} ms "
+        f"device (each class one call captured in a CUDA graph, replayed with the L2 cold), bound "
+        f"{times['full'][2]:.4f} ms")
     return errs, times
 
 
@@ -751,13 +805,7 @@ def phase_main(scorer, card):
 
     sample = queries[:256]
     _s, s_slots, s_keys = dix.query_batch_async(sample, scorer, top_k=k).get_arrays()
-    hits = total = 0
-    for qi, q in enumerate(sample):
-        o_keys = {r.key for r in ix.query(q, bm25.new(), pdev.whitespace_tokenizer, [1.0])[:k]}
-        d_keys = {int(x) for x, sl in zip(s_keys[qi], s_slots[qi]) if sl >= 0}
-        hits += len(o_keys & d_keys)
-        total += len(o_keys)
-    recall = hits / max(total, 1)
+    recall = bm25_recall(ix, sample, s_slots, s_keys, k)
     log(f"recall@{k} against the f64 oracle on {len(sample)} queries: {recall!r}")
     assert recall >= 0.999, recall
 
@@ -765,11 +813,178 @@ def phase_main(scorer, card):
     return launches, errs, times, ix, dix, windows
 
 
+def bm25_recall(ix, sample, slots, keys, k):
+    """recall@k of device rows (``slots``, ``keys``) against the f64 oracle
+    ``Index.query`` on the queries ``sample``."""
+    hits = total = 0
+    for qi, q in enumerate(sample):
+        o_keys = {r.key for r in ix.query(q, bm25.new(), TOK, [1.0])[:k]}
+        d_keys = {int(x) for x, sl in zip(keys[qi], slots[qi]) if sl >= 0}
+        hits += len(o_keys & d_keys)
+        total += len(o_keys)
+    return hits / max(total, 1)
+
+
 def reset_bm25_counts():
-    for counts in (fq.launches, fm.launches):
+    for counts in (fq.launches, fm.launches, fm.path_calls):
         for key in counts:
             counts[key] = 0
     pdev.metrics.reset()
+
+
+def bm25_counts():
+    """The BM25 wrappers' launch counts, and K5's calls by path."""
+    return {**fq.launches, **fm.launches, **{f"k5_{p}": n for p, n in fm.path_calls.items()}}
+
+
+def tally_kernels(counts, key_bits):
+    """Kernels the wrappers launched for ``counts`` (``bm25_counts``): K1
+    and K3 one a call, K5 one on the block path, ``path_kernels`` on the
+    radix path."""
+    return (counts["full"] + counts["lanes"] + counts["k5_block"]
+            + counts["k5_radix"] * path_kernels("radix", key_bits))
+
+
+PORT_KERNELS = ("fused_query_full_kernel", "fused_query_lanes_kernel", "merge_block_kernel", "radix_")
+MANIFEST = os.path.join(ROOT, "benchmarks", "bench_templates.json")
+
+
+def phase_graphs(ix, dix, windows, scorer, card):
+    """Phase 3g: the graph path.  A second DeviceIndex over the same index
+    loads the bench manifest and prewarms (one CUDA graph per template);
+    8 pipelined windows are served eager, graph, graph, eager; the graph
+    path's slots must equal the eager path's, with no refreeze and recall@10
+    1.0.  Then the window's replay timed with the L2 cold and warm, the
+    profiler's kernel count per window beside the launch tally and the
+    captured step's kernel nodes, and a pair of windows drained jointly
+    against two drained apart.  Returns the graph path's launch counts."""
+    k = 10
+    tkey = (pdev._scorer_cache_key(scorer), k, "slots20", WINDOW)
+    gix = DeviceIndex(ix, device="cuda")
+    n_tpl = gix.load_templates(MANIFEST)
+    entries = gix._comp_templates[tkey]
+    own = dix._comp_templates.get(tkey)
+    log(f"3g manifest {os.path.relpath(MANIFEST, ROOT)}: {n_tpl} template(s), {len(entries)} "
+        f"entries, {sum(e[2] for e in entries)} rows; the eager index froze "
+        + ("the same template" if own == entries else f"another template: {own}"))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
+    pdev.metrics.reset()
+    t = time.perf_counter()
+    n_warm = gix.prewarm(scorer)
+    torch.cuda.synchronize()
+    t_pw = time.perf_counter() - t
+    mem1 = torch.cuda.memory_reserved()
+    ctr = pdev.metrics.snapshot()["counters"]
+    log(f"3g prewarm: {n_warm} template(s) warmed, {len(gix._graphs)} CUDA graph(s) "
+        f"({int(ctr.get('template_graph_captures', 0))} captured) in {t_pw:.3f} s; memory "
+        f"reserved {mem0 / 2**20:.1f} MiB before, {mem1 / 2**20:.1f} MiB after")
+    assert n_tpl == 1 and n_warm == 1 and list(gix._graphs) == [tkey]
+    t = time.perf_counter()
+    for _ in range(2):  # warm-up: the new index's plan pools
+        for w in windows:
+            gix.query_batch_async(w, scorer, top_k=k).get_arrays()
+    torch.cuda.synchronize()
+    ctr = pdev.metrics.snapshot()["counters"]
+    log(f"3g warm-up (2 passes): {time.perf_counter() - t:.1f} s, "
+        f"{int(ctr.get('template_graph_replays', 0))} replays, "
+        f"{int(ctr.get('template_refreezes', 0))} refreezes")
+    assert not ctr.get("template_refreezes") and ctr.get("template_graph_replays") == 4, ctr
+
+    turns = []
+    for turn, x in (("eager", dix), ("graph", gix), ("graph", gix), ("eager", dix)):
+        reset_bm25_counts()
+        dt, lat_ms, out = serve_pipelined(lambda i, x=x: x.query_batch_async(windows[i % 2], scorer, top_k=k))
+        counts = bm25_counts()
+        ctr = pdev.metrics.snapshot()["counters"]
+        hist = pdev.metrics.snapshot()["histograms"]
+        replays = int(ctr.get("template_graph_replays", 0))
+        log(f"3g {turn}: 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} ms/window, "
+            f"{8 * WINDOW / dt:.1f} QPS, window latency p50 {np.median(lat_ms):.1f} ms; host phases "
+            "(mean ms): " + ", ".join(
+                f"{name.split('/')[1]} {hist[name]['mean_us'] / 1e3:.3f}"
+                for name in (f"query/{p}" for p in ("plan", "pack", "h2d", "dispatch", "fetch", "drain"))
+                if name in hist)
+            + f"; {replays} replays; launches {counts}")
+        assert counts["full"] > 0 and counts["lanes"] > 0 and counts["merge_topk"] > 0, counts
+        assert not ctr.get("template_refreezes") and replays == (8 if turn == "graph" else 0), ctr
+        turns.append((turn, out, counts))
+    for turn, out, _c in turns[1:]:
+        for got, want in zip(out, turns[0][1]):
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[2], want[2])
+    _s, slots, keys = turns[1][1][0]  # the graph path's first window
+    recall = bm25_recall(ix, windows[0][:256], slots, keys, k)
+    log(f"3g the graph path's slots equal the eager path's (3 turns x 8 windows); recall@{k} of its "
+        f"first 256 rows against the f64 oracle: {recall!r}")
+    assert recall == 1.0, recall
+
+    g = gix._graphs[tkey]
+    cold = replay_ms(g.graph)
+    warm = cuda_ms(lambda: [g.graph.replay() for _ in range(10)]) / 10
+    log(f"3g the window's CUDA graph replay: {cold:.4f} ms with the L2 cold, {warm:.4f} ms warm "
+        "(10 replays back to back)")
+    step = gix._step(scorer, k, "slots20", tuple((c, c, nj, nc, False) for nc, nj, c in entries))
+    nodes = kernels_per_call(lambda: step(g.words))
+    for turn, x in (("eager", dix), ("graph", gix)):
+        reset_bm25_counts()
+        ev = profile_windows(lambda i, x=x: x.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
+        want = tally_kernels(bm25_counts(), dix._key_bits) / 2
+        port = sum(c for name, (c, _ms) in ev.items() if any(p in name for p in PORT_KERNELS))
+        every = sum(c for name, (c, _ms) in ev.items() if not name.startswith(("Memcpy", "Memset")))
+        busy = sum(ms for _c, ms in ev.values())
+        flag = "" if (port, every) == (want, nodes) else "  MISMATCH (the profiler lost launches)"
+        log(f"3g {turn} window under the profiler: busy {busy:.3f} ms (replay {cold:.4f} cold / "
+            f"{warm:.4f} warm); kernels {every:g}, of the port's library {port:g}; the launch tally "
+            f"{want:g} of the port's kernels, the captured step {nodes} kernels{flag}")
+
+    joint, apart = [], []
+    for _ in range(5):
+        for mode, times_ in (("joint", joint), ("apart", apart)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pair = [gix.query_batch_async(w, scorer, top_k=k) for w in windows]
+            if mode == "joint":
+                pdev.fetch_windows_jointly(pair)
+            arrays = [h.get_arrays() for h in pair]
+            times_.append(1e3 * (time.perf_counter() - t))
+            for got, want in zip(arrays, turns[0][1]):
+                np.testing.assert_array_equal(got[1], want[1])
+    log(f"3g a pair of windows submitted and drained (prefetch on, graph path): jointly "
+        f"{np.median(joint):.3f} ms, apart {np.median(apart):.3f} ms (medians of 5, host clock)")
+    return turns[1][2]
+
+
+def phase_custom(ix, dix, sample):
+    """Phase 3c: one window of a user's one-phase scorer (``TfBoost``,
+    tests/torch_util.py: its score in torch) on the 1M-doc index, f32 rows
+    against the f64 host oracle ``Index.query``: staged lanes + K5, never
+    the fused kernel.  Returns K5's launches."""
+    import dataclasses
+
+    k = 10
+    reset_bm25_counts()
+    dix.config = dataclasses.replace(ix.config, result_format="f32")
+    try:
+        t = time.perf_counter()
+        scores, slots, _keys = dix.query_batch_async(sample, TfBoost(), top_k=k).get_arrays()
+        ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        dix.config = ix.config
+    counts = bm25_counts()
+    assert counts["merge_topk"] > 0 and counts["full"] == counts["lanes"] == 0, counts
+    t = time.perf_counter()
+    o_s = np.full((len(sample), k), -np.inf, np.float32)
+    o_d = np.full((len(sample), k), -1, np.int32)
+    for qi, q in enumerate(sample):
+        for r, res in enumerate(ix.query(q, TfBoost(), TOK, [1.0], top_k=k)):
+            o_s[qi, r] = res.score
+            o_d[qi, r] = ix._key_to_slot[res.key]
+    err = assert_topk_agree(scores, slots, o_s, o_d)
+    log(f"3c TfBoost window ({len(sample)} queries, cold): {ms:.3f} ms submit to drained, launches "
+        f"{counts}; rows agree with the f64 host oracle (max abs err {err:.3g}, "
+        f"{time.perf_counter() - t:.1f} s)")
+    return counts["merge_topk"]
 
 
 def range_window(window):
@@ -845,11 +1060,15 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
         f"{sum(L > 32768 for L in lanes)}; calls by path {dict(fm.path_calls)}")
     assert plan.has_range[rq].all() and plan.has_range.sum() == len(rq)
     assert not range_host and counts["merge_topk"] > 0 and routes.get("range+K5"), (range_host, counts)
+    want = fm.path_calls["block"] + fm.path_calls["radix"] * path_kernels("radix", dix._key_bits)
     ev = profile_windows(lambda i: dix.query_batch_async(w, scorer, top_k=k), n=2)
     k5 = {name: c for name, c in ev.items() if any(x in name for x in K5_KERNELS)}
-    log(f"3r K5 kernel launches per warm window: {sum(c for c, _ms in k5.values()):g} "
-        f"({sum(ms_ for _c, ms_ in k5.values()):.3f} ms device; the bitonic multi-launch merge it "
-        f"replaced: 538 sort_tile + 1,122 stage + 245 topk_seg + doc_total launches)")
+    got = sum(c for c, _ms in k5.values())
+    flag = "" if got == want else "  MISMATCH (the profiler lost launches)"
+    log(f"3r K5 kernel launches per warm window: {got:g} under the profiler, {want} by the "
+        f"calls by path ({sum(ms_ for _c, ms_ in k5.values()):.3f} ms device; the bitonic "
+        f"multi-launch merge it replaced: 538 sort_tile + 1,122 stage + 245 topk_seg + "
+        f"doc_total launches){flag}")
 
     # The range queries as f32 rows, against the f64 vectorized host path.
     sub = [w[i] for i in rq]
@@ -1158,6 +1377,10 @@ def main():
     errs["probe_add"] = 0.0  # bit-equal, asserted
     launches, win_errs, times, ix, dix, windows = phase_main(scorer, card)
     log(f"K5 launches on the main path: {launches['merge_topk']}")
+    graph_launches = phase_graphs(ix, dix, windows, scorer, card)
+    for key in ("full", "lanes", "merge_topk"):
+        launches[key] += graph_launches[key]
+    launches["merge_topk"] += phase_custom(ix, dix, windows[0][:256])
     launches["merge_topk"] += phase_ranges(ix, dix, windows[0], scorer, win_errs, times)
     phase_z2o_1m(ix, dix, windows[0])
     del ix, dix

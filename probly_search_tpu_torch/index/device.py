@@ -8,9 +8,17 @@ after another on the device:
   plan (host, numpy) -> pack job tables -> one H2D copy of the window
   per class: expand_chunks (torch) -> fused_query_topk (CUDA kernel;
              phase "full", or phase "lanes" + the merge kernel K5 for wide
-             classes); term-range classes and chunk widths that are not a
-             power of two: staged torch gather + score -> K5 (full sort)
+             classes); term-range classes, chunk widths that are not a
+             power of two and scorers the kernel does not compute (a user's
+             ``device_score_lanes``): staged torch gather + score -> K5
+             (full sort)
   trim / pad / pack_result_rows -> one packed result -> one D2H copy
+
+A window packed into a frozen template (``_pack_dispatches_template``) whose
+step ``prewarm`` captured on a CUDA device replays that capture instead: one
+CUDA graph (``WindowGraph``) per template, the port's counterpart of the JAX
+engine's compiled window program.  ``save_templates`` / ``load_templates``
+carry the templates across processes in the JAX engine's manifest format.
 
 Term-range jobs (word 1 bit 30): a query term with at least
 ``IndexConfig.range_min_expansions`` expansions plans as one job per segment
@@ -34,8 +42,7 @@ result formats and ``PendingBatch``.
 
 What the port does not do yet (each raises or is documented): block-max
 pruning (``prune_blocks`` is not honoured; pruning is exact, so results are
-unchanged), light classes, per-class dispatch, template save/load and
-prewarm, sharding and ``fetch_windows_jointly``.
+unchanged), light classes, per-class dispatch and sharding.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ import torch
 from ..config import HostFallbackError
 from ..models.base import QueryResult
 from ..ops.fused_merge import KEY_BITS, key_bits_for, merge_scores_topk_fused
-from ..ops.fused_query import fused_query_topk, gather_score, padded_rows
+from ..ops import fused_merge as _fm
+from ..ops import fused_query as _fq
+from ..ops.fused_query import _kernel_scores, fused_query_topk, gather_score, padded_rows
 from ..ops.merge import INVALID_KEY
 from ..utils.metrics import metrics
 from ..utils.tokenizers import whitespace_tokenizer
@@ -178,13 +187,15 @@ def _query_step(
 ):
     """One shape class: ``jobs_flat`` int32[B, NJ * 3] -> top-k per row.
 
-    Classes of power-of-two chunk width without range jobs run the fused
-    kernel (K1, or K3 + the merge kernel K5 over presorted runs).  Range
-    classes (``use_ranges``, which need ``aux``) and other chunk widths run
-    ``staged_lanes``, then K5 with a full sort: a range chunk spans many
-    terms, so its lanes are not doc-sorted."""
+    Classes of power-of-two chunk width without range jobs, whose scorer the
+    kernel computes (the port's BM25), run the fused kernel (K1, or K3 + the
+    merge kernel K5 over presorted runs).  Range classes (``use_ranges``,
+    which need ``aux``), other chunk widths and other scorers (the kernel
+    cannot call a Python ``device_score_lanes``) run ``staged_lanes``, then
+    K5 with a full sort: a range chunk spans many terms, so its lanes are
+    not doc-sorted."""
     C, NC = chunk, num_chunks
-    if not use_ranges and C & (C - 1) == 0:
+    if not use_ranges and C & (C - 1) == 0 and _kernel_scores(scorer):
         jobs = jobs_flat.reshape(jobs_flat.shape[0], -1, 3)
         tables = expand_chunks(jobs, C, NC)
         scalars = torch.cat([field_avg, fields_boost])
@@ -394,9 +405,75 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
-def fetch_windows_jointly(batches) -> None:
-    """Not ported: the port starts each window's D2H copy at submit time."""
-    raise _not_ported("fetch_windows_jointly", "M5 entry points")
+def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
+    """Drain several windows' packed rows in one device-to-host copy.
+
+    One device ``torch.cat`` of the live windows' packed rows (enqueued
+    behind the windows it reads) and one D2H copy of the result; each
+    window's slice of the host copy is planted on its handle, whose later
+    ``get_arrays()`` / ``get()`` decodes from it with no device read.
+    Batches with no packed rows (host-only, or already fetched jointly) and
+    groups of mixed packed dtypes (different result formats) are left to
+    fetch on their own."""
+    live = [b for b in batches if b._packed is not None and b._packed_host is None]
+    if len(live) < 2 or len({b._packed.dtype for b in live}) != 1:
+        return
+    flats = [b._packed.reshape(-1) for b in live]
+    with metrics.timer("query/fetch"):
+        host = torch.cat(flats).cpu().numpy()
+    off = 0
+    for b, f in zip(live, flats):
+        n = f.numel()
+        b._packed_host = host[off : off + n].reshape(tuple(b._packed.shape))
+        off += n
+
+
+# The kernel launch counters a BM25 window step can move (plain int dicts of
+# the wrappers).  Capturing a step into a CUDA graph moves them though
+# nothing ran; ``WindowGraph`` takes that back out and adds it on replays.
+_LAUNCH_COUNTERS = (_fq.launches, _fm.launches, _fm.path_calls)
+
+
+class WindowGraph:
+    """One frozen template's window step captured as a CUDA graph.
+
+    ``words`` is the static input: every class's job table back to back,
+    then the F field-boost words (so one graph serves any ``fields_boost``);
+    ``packed`` is the static output, the window's packed rows.  The step's
+    tensors (``rec``, ``field_avg``), the scorer's constants, k and the
+    result format are baked into the graph: the template key carries the
+    scorer's ``device_cache_key``, k and the format, and the graph lives on
+    the ``DeviceIndex`` whose tensors it reads.  A failed capture or replay
+    raises; nothing falls back to the eager step."""
+
+    def __init__(self, step, words) -> None:
+        before = [dict(c) for c in _LAUNCH_COUNTERS]
+        self.words = words
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="relaxed"):
+            self.packed = step(words)
+        self._delta = []
+        for counts, was in zip(_LAUNCH_COUNTERS, before):
+            for key, n in counts.items():
+                if n != was[key]:
+                    self._delta.append((counts, key, n - was[key]))
+                    counts[key] = was[key]
+        self._lock = threading.Lock()
+        metrics.inc("template_graph_captures", 1)
+
+    def run(self, words) -> torch.Tensor:
+        """Copy a window's job words (pinned host memory) into the static
+        input, replay, and return a private device copy of the packed rows:
+        a later replay overwrites the static output before a handle that
+        does not prefetch reads it."""
+        with self._lock:
+            self.words.copy_(words, non_blocking=True)
+            self.graph.replay()
+            packed = self.packed.clone()
+        for counts, key, n in self._delta:
+            counts[key] += n
+        metrics.inc("template_graph_replays", 1)
+        return packed
 
 
 class DeviceIndex:
@@ -530,6 +607,9 @@ class DeviceIndex:
         # Frozen window-composition templates: (scorer key, k, fmt, window
         # size) -> [(nc, nj, row_capacity), ...].
         self._comp_templates: Dict[Any, list] = {}
+        # Window steps captured by prewarm on a CUDA device, by template key;
+        # a refreeze or a load of the key drops its graph (stale layout).
+        self._graphs: Dict[Any, WindowGraph] = {}
 
     def _aux_rec(self, scorer):
         """Aux record array int32[4, P + C] of term-range jobs, built on the
@@ -1113,6 +1193,7 @@ class DeviceIndex:
                     entries.append((nc, njmax[nc], cap))
                     cap_total -= cap
             self._comp_templates[tkey] = entries
+            self._graphs.pop(tkey, None)
             metrics.inc("template_refreezes", 1)
             buckets = try_assign(entries)
             if buckets is None:  # capacities were sized to hold this window
@@ -1169,24 +1250,127 @@ class DeviceIndex:
         if not cfg.single_dispatch_windows:
             raise _not_ported("single_dispatch_windows=False", "per-class dispatch")
 
+    # ------------------------------------------------------------------ #
+    # template manifest and prewarm                                       #
+    # ------------------------------------------------------------------ #
+
     def save_templates(self, path: str) -> int:
-        raise _not_ported("save_templates", "M8, templates and prewarm")
+        """Write the frozen composition templates to a JSON manifest (the
+        JAX engine's format: ``repr(key)`` -> entries), so that a cold
+        process can ``load_templates`` + ``prewarm`` before its first query.
+        Templates of a scorer without ``device_cache_key`` are keyed
+        ``('id', id(scorer))``, meaningless in another process: they are
+        skipped with a warning.  Returns the number of templates written."""
+        import json
+        import warnings
+
+        kept = {
+            k: v
+            for k, v in self._comp_templates.items()
+            if not (isinstance(k[0], tuple) and k[0] and k[0][0] == "id")
+        }
+        if len(kept) < len(self._comp_templates):
+            warnings.warn(
+                f"save_templates: skipped {len(self._comp_templates) - len(kept)} "
+                "template(s) whose scorer has no device_cache_key (process-local "
+                "('id', ...) keys cannot prewarm another process)",
+                stacklevel=2,
+            )
+        with open(path, "w") as f:
+            json.dump({repr(k): [list(map(int, e)) for e in v] for k, v in kept.items()}, f)
+        return len(kept)
 
     def load_templates(self, path: str) -> int:
-        raise _not_ported("load_templates", "M8, templates and prewarm")
+        """Load a template manifest written by ``save_templates`` of either
+        package.  Entries are ``(nc, nj, cap)`` or the JAX engine's ``(nc,
+        nj, cap, cw)``; a chunk width ``cw`` other than this index's is a
+        light class, which the port does not serve yet (raises, loading
+        nothing).  Returns the number of templates in the manifest."""
+        import ast
+        import json
+
+        with open(path) as f:
+            raw = json.load(f)
+        loaded = {}
+        for ks, entries in raw.items():
+            rows = []
+            for e in entries:
+                if len(e) not in (3, 4):
+                    raise ValueError(f"template entry {e} of {ks}: expected (nc, nj, cap[, cw])")
+                if len(e) == 4 and int(e[3]) != self.CHUNK:
+                    raise _not_ported(
+                        f"a template entry of chunk width {e[3]} (light classes; this "
+                        f"index's chunk width is {self.CHUNK})",
+                        "per-class dispatch",
+                    )
+                rows.append(tuple(int(x) for x in e[:3]))
+            loaded[ast.literal_eval(ks)] = rows
+        for key, rows in loaded.items():
+            self._comp_templates[key] = rows
+            self._graphs.pop(key, None)
+        return len(raw)
 
     def prewarm(self, scorer, fields_boost=None) -> int:
-        raise _not_ported("prewarm", "M8, templates and prewarm")
+        """Run the window step of every frozen template of ``scorer`` once,
+        on all-zero job words (the step's kernels and shapes depend only on
+        the template), and on a CUDA device capture it as a CUDA graph that
+        windows packed into that template then replay.  Returns the number
+        of templates warmed."""
+        skey = _scorer_cache_key(scorer)
+        F = self.num_fields
+        boost = np.asarray(fields_boost if fields_boost is not None else [1.0] * F, np.float32)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            # Build the kernels and set the shared-memory attributes of those
+            # the step launches (K1 / K3, K5) before any capture.
+            index = self.device.index if self.device.index is not None else torch.cuda.current_device()
+            _fq.device_smem(index)
+            _fm.device_smem(index)
+        n = 0
+        for tkey, entries in list(self._comp_templates.items()):
+            if tkey[0] != skey:
+                continue
+            _skey, k, fmt, _w = tkey
+            specs = tuple((cap, cap, nj, nc, False) for nc, nj, cap in entries)
+            total = sum(cap * nj * 3 for nc, nj, cap in entries)
+            words = torch.zeros(total + F, dtype=torch.int32, device=self.device)
+            words[total:] = torch.from_numpy(boost.view(np.int32)).to(self.device)
+            step = self._step(scorer, k, fmt, specs)
+            step(words)
+            if cuda:
+                self._graphs[tkey] = WindowGraph(step, words)
+            n += 1
+        return n
 
-    def _upload(self, words: np.ndarray):
-        """One H2D copy of the window's int32 words, through pinned memory
-        and without blocking the host."""
+    def _step(self, scorer, k: int, fmt: str, class_specs, aux=None):
+        """The window step of ``class_specs`` as a function of the window's
+        words (the class job tables, then the F field-boost words)."""
+        F = self.num_fields
+
+        def step(words):
+            n = words.numel() - F
+            return _window_step(
+                scorer, self.rec, self.field_avg, words[n:].view(torch.float32), words[:n], aux,
+                chunk=self.CHUNK, k=k, qterm_bits=self._qterm_bits, num_fields=F,
+                class_specs=class_specs, fmt=fmt, key_bits=self._key_bits,
+            )
+
+        return step
+
+    def _pinned(self, words: np.ndarray):
+        """The window's int32 words in pinned host memory (on the CPU: a
+        plain view)."""
         t = torch.from_numpy(words)
         if self.device.type == "cpu":
             return t
         pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         pinned.copy_(t)
-        return pinned.to(self.device, non_blocking=True)
+        return pinned
+
+    def _upload(self, words: np.ndarray):
+        """One H2D copy of the window's int32 words, through pinned memory
+        and without blocking the host."""
+        return self._pinned(words).to(self.device, non_blocking=True)
 
     def query_batch_async(
         self,
@@ -1296,7 +1480,7 @@ class DeviceIndex:
                 self, len(queries), host_rows=host_rows, k=k,
                 array_rows=array_rows, fmt=fmt,
             )
-        tpl_specs = None
+        tpl_specs = graph = None
         with metrics.timer("query/pack"):
             if (
                 cfg.template_compositions
@@ -1310,6 +1494,7 @@ class DeviceIndex:
                 dispatches, tpl_specs = self._pack_dispatches_template(
                     len(queries), plan, tkey
                 )
+                graph = self._graphs.get(tkey)
             else:
                 dispatches = self.pack_dispatches(len(queries), plan)
         if not dispatches:
@@ -1327,32 +1512,21 @@ class DeviceIndex:
             )
         else:
             class_specs = tpl_specs
-        F = self.num_fields
         with metrics.timer("query/h2d"):
             # The field boosts ride at the end of the one H2D buffer.
             words_np = np.concatenate(
                 [d[1].reshape(-1) for d in dispatches]
                 + [np.asarray(fields_boost, dtype=np.float32).view(np.int32)]
             )
-            words_flat = self._upload(words_np)
-        n_words = len(words_np) - F
+            # A captured template copies the pinned words into its graph's
+            # static input as it replays.
+            words_flat = self._pinned(words_np) if graph is not None else self._upload(words_np)
         aux = self._aux_rec(scorer) if any(spec[4] for spec in class_specs) else None
         with metrics.timer("query/dispatch"):
-            packed = _window_step(
-                scorer,
-                self.rec,
-                self.field_avg,
-                words_flat[n_words:].view(torch.float32),
-                words_flat[:n_words],
-                aux,
-                chunk=self.CHUNK,
-                k=k,
-                qterm_bits=self._qterm_bits,
-                num_fields=F,
-                class_specs=class_specs,
-                fmt=fmt,
-                key_bits=self._key_bits,
-            )
+            if graph is not None:
+                packed = graph.run(words_flat)
+            else:
+                packed = self._step(scorer, k, fmt, class_specs, aux)(words_flat)
         layout = []
         row = 0
         for (idxs, *_a), (_, b_out, *_b) in zip(dispatches, class_specs):
@@ -1421,11 +1595,14 @@ class PendingBatch:
         self._k = k
         self._host = host  # pinned host copy in flight (prefetch_results)
         self._event = event  # recorded after that copy
+        self._packed_host = None  # host copy planted by fetch_windows_jointly
 
     def _unpack(self):
         """Wait for the packed rows on the host and decode them."""
         with metrics.timer("query/fetch"):
-            if self._event is not None:
+            if self._packed_host is not None:
+                packed = self._packed_host
+            elif self._event is not None:
                 self._event.synchronize()
                 packed = self._host.numpy()
             else:

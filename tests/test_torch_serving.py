@@ -203,13 +203,8 @@ def test_not_ported_options_raise(served):
     # zero-to-one is served now (tests/test_torch_z2o.py holds its results)
     z2o = p.query_batch_async(windows[0], zero_to_one.new(), top_k=K).get_arrays()
     assert z2o[1].shape == (len(windows[0]), K) and (z2o[1] >= 0).any()
-    for call in (p.save_templates, p.load_templates):
-        with pytest.raises(NotImplementedError, match="M8"):
-            call("templates.json")
-    with pytest.raises(NotImplementedError, match="M8"):
-        p.prewarm(bm25.new())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdev.fetch_windows_jointly([p.query_batch_async(windows[0], bm25.new())])
+    # templates, prewarm and fetch_windows_jointly are served now
+    # (tests/test_torch_templates.py holds them)
     with pytest.raises(NotImplementedError, match="M9"):
         Index(1, device="cpu").attach_mesh(object())  # the port refuses any mesh
 

@@ -4,7 +4,32 @@
 import numpy as np
 import torch
 
+from probly_search_tpu_torch.models.base import BaseScoreCalculator
+
 QB = 4  # qterm bits of the merge key
+
+
+class TfBoost(BaseScoreCalculator):
+    """The user scorer of tests/test_custom_device_scorer.py on the port:
+    score = sum_f tf_f * boost_f per posting (its device half in torch),
+    max within a term, sum across terms, as any one-phase scorer."""
+
+    device_needs_finalize = False
+    device_excludes_nonpositive = True
+
+    def device_cache_key(self):
+        return ("tfboost",)
+
+    def score(self, before, pointer, details, node, field_data, term):
+        s = float(sum(tf * b for tf, b in zip(pointer.term_frequency, field_data.fields_boost)))
+        return s if s > 0 else None
+
+    def device_term_scale(self, df, n_docs, expansion_boost):
+        return np.ones(len(df), np.float32)
+
+    def device_score_lanes(self, lanes):
+        per_field = lanes.tf * lanes.fields_boost[:, None]
+        return per_field.sum(dim=-2) * lanes.scale  # scale is per chunk or per lane
 
 
 def make_rec(rng, F=1, n_docs=400, n_terms=120, C=128):
