@@ -32,15 +32,17 @@ Phases (any failure raises, so the exit code is not 0):
   2p. the launch probe (P1) against x + 1, bit-equal, over chains of 1, 4
      and 16 launches: per-launch time from the host clock and CUDA events,
      launched one by one and as one captured CUDA graph a chain, beside
-     torch.add chains run the same two ways;
+     torch.add chains run the same two ways; and the device time of one
+     call of each (captured in a CUDA graph, replayed with the L2 cold);
   3. the BM25 main path at real size: top-10 over the 1,000,000-doc bench
      corpus (bench.py's generator), two 16,384-query windows, 8 windows
      served through DeviceIndex.query_batch_async with a depth-4 pipeline
      and paired late drains; launch counts, ms/window, QPS, recall@10
-     against the f64 oracle on 256 queries, and every class of the first
-     window held kernel against plain on its real tables (K1; K3 and K5 on
-     the wide classes; K1's and K3's device times beside their CUDA-event
-     times);
+     against the f64 oracle on 256 queries, host phases (query/prune
+     included: block-max pruning is on by default), and every class of the
+     first (pruned) window held kernel against plain on its real tables
+     (K1; K3 and K5 on the wide classes; K1's and K3's device times beside
+     their CUDA-event times);
   3g. the graph path over that index: a second DeviceIndex loads
      benchmarks/bench_templates.json and prewarms (one CUDA graph per
      template; seconds and memory reserved); 8 pipelined windows served
@@ -63,6 +65,16 @@ Phases (any failure raises, so the exit code is not 0):
      smallest also against Index.query, 0 host rows; K5 held
      against plain on every range class and on the heavy-cache classes of
      t0, t00 and t1 (with their kernel launches per call, asserted);
+  3p. block-max pruning on that index (benchmarks/prune_probe.py's mixes,
+     rebuilt here: single, skewed and headline, rng seed 7, one 16,384-query
+     window each, top-10): two DeviceIndexes, pruning on and off, served in
+     alternating turns; chunks pruned a window against the total, slots
+     bit-equal on and off, ms a window and p50 (medians of 3 turns of 4
+     queued windows), query/prune host ms cold and warm and the bounds'
+     build, device busy share of one window on and off (torch.profiler),
+     recall@10 of the pruned rows against the f64 oracle on 256 queries;
+     pruning must fire on single (on skewed the rare term's own bound
+     exceeds every achievable threshold at this size: nothing can prune);
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route, and the rows held against the f64 oracle on 64 queries;
   4. the zero-to-one main path at the repo's zero_to_one_50k configuration
@@ -131,6 +143,8 @@ MERGE_EDGES = (
 # K1 past its shared-memory top-k buffer (fused_query.MAX_K): (NC, k).
 FULL_LARGE_K = ((8, 5000), (16, 16384))
 PROBE_CHAINS = (1, 4, 16)
+# The BM25 window's host phases (metrics timers query/<name>), in order.
+HOST_PHASES = ("plan", "prune", "pack", "h2d", "dispatch", "fetch", "drain")
 INT32_MAX = 2**31 - 1
 SYN_KEY_BITS = fm.key_bits_for(20_000, QB)  # synthetic_rec's docs
 SYN_Z2O_KEY_BITS = fm.key_bits_for(20_000, fz.DOC_SHIFT)
@@ -556,6 +570,12 @@ def phase_probe():
             g.reset()
             log(f"probe chain of {n:2d} {name:7s} as one CUDA graph: {host_us:.3f} us/launch host "
                 f"clock, {ev_us:.3f} us/launch CUDA events")
+    # Device time: one call captured in a CUDA graph, its replay timed after
+    # a write of 4x the L2 (as K1's, K3's and K4's).
+    dev_us = {name: 1e3 * graph_ms(lambda fn=fn: fn(x), reps=reps)
+              for name, fn in (("kernel", lp.probe_add), ("library", lambda y: torch.add(y, 1.0)))}
+    log(f"probe device time, one call captured in a CUDA graph, replayed with the L2 cold: "
+        f"P1 {dev_us['kernel']:.3f} us, torch.add {dev_us['library']:.3f} us")
     lp.launches["probe_add"] = launches  # the captures launched nothing
     n = PROBE_CHAINS[-1]
     bound_ms, by = bound(0, 0, x.numel() * 4, x.numel() * 4, x.numel())
@@ -664,6 +684,7 @@ def phase_z2o_kernels():
 def window_classes(dix, queries, scorer, k):
     """(dispatches, class_specs) the port packs for ``queries``."""
     plan, _fb = dix.plan_batch(queries, pdev.whitespace_tokenizer, scorer)
+    plan = dix.prune(plan, scorer, k, [1.0] * dix.num_fields)  # as query_batch_async does
     tkey = (pdev._scorer_cache_key(scorer), k, "slots20", len(queries))
     return dix._pack_dispatches_template(len(queries), plan, tkey)
 
@@ -798,7 +819,7 @@ def phase_main(scorer, card):
     hist = pdev.metrics.snapshot()["histograms"]
     log("host phases per window (mean ms, host clock): " + ", ".join(
         f"{name.split('/')[1]} {hist[name]['mean_us'] / 1e3:.3f}"
-        for name in (f"query/{p}" for p in ("plan", "pack", "h2d", "dispatch", "fetch", "drain"))
+        for name in (f"query/{p}" for p in HOST_PHASES)
         if name in hist
     ))
     profile_windows(lambda i: dix.query_batch_async(windows[i % 2], scorer, top_k=k))
@@ -810,7 +831,7 @@ def phase_main(scorer, card):
     assert recall >= 0.999, recall
 
     errs, times = check_window_classes(dix, dispatches, scorer, k)
-    return launches, errs, times, ix, dix, windows
+    return launches, errs, times, ix, dix, windows, (vocab, cdf)
 
 
 def bm25_recall(ix, sample, slots, keys, k):
@@ -903,7 +924,7 @@ def phase_graphs(ix, dix, windows, scorer, card):
             f"{8 * WINDOW / dt:.1f} QPS, window latency p50 {np.median(lat_ms):.1f} ms; host phases "
             "(mean ms): " + ", ".join(
                 f"{name.split('/')[1]} {hist[name]['mean_us'] / 1e3:.3f}"
-                for name in (f"query/{p}" for p in ("plan", "pack", "h2d", "dispatch", "fetch", "drain"))
+                for name in (f"query/{p}" for p in HOST_PHASES)
                 if name in hist)
             + f"; {replays} replays; launches {counts}")
         assert counts["full"] > 0 and counts["lanes"] > 0 and counts["merge_topk"] > 0, counts
@@ -985,6 +1006,134 @@ def phase_custom(ix, dix, sample):
         f"{counts}; rows agree with the f64 host oracle (max abs err {err:.3g}, "
         f"{time.perf_counter() - t:.1f} s)")
     return counts["merge_topk"]
+
+
+def prune_mixes(vocab, cdf, n=WINDOW):
+    """``benchmarks/prune_probe.py``'s three mixes over the bench corpus, one
+    window of ``n`` queries each (rng seed 7): ``single``, 1-term Zipf
+    queries from rank 100 up; ``skewed``, a term of rank 100-2,000 with one
+    of rank 20,000-50,000; ``headline``, bench.py's 3-term mix with seed 9."""
+    rng = np.random.default_rng(7)
+
+    def zipf_ids(n, lo_rank=100, hi=None):
+        lo = cdf[lo_rank - 1]
+        hiv = cdf[hi - 1] if hi else 1.0
+        return np.minimum(np.searchsorted(cdf, lo + rng.random(n) * (hiv - lo)), len(vocab) - 1)
+
+    single = [vocab[i] for i in zipf_ids(n)]
+    skewed = [
+        f"{vocab[c]} {vocab[r]}"
+        for c, r in zip(zipf_ids(n, 100, 2000), rng.integers(20_000, 50_000, n))
+    ]
+    return {"single": single, "skewed": skewed, "headline": make_queries(vocab, cdf, n, 3, seed=9)}
+
+
+def serve_queued(d, queries, scorer, k, n=4):
+    """``n`` windows submitted back to back, then drained in order.  Returns
+    (ms a window, [latency ms submit to drained], the first window's
+    arrays)."""
+    t0 = time.perf_counter()
+    handles = [(time.perf_counter(), d.query_batch_async(queries, scorer, top_k=k)) for _ in range(n)]
+    lat, first = [], None
+    for t_submit, h in handles:
+        arrays = h.get_arrays()
+        lat.append(1e3 * (time.perf_counter() - t_submit))
+        first = first or arrays
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n, lat, first
+
+
+def phase_prune(ix, vocab, cdf, card):
+    """Phase 3p: block-max pruning on the 1M-doc index, nothing cut, over
+    ``prune_mixes``.  Two fresh DeviceIndexes serve in alternating turns,
+    one with ``prune_blocks`` on and one with it off (each freezes its own
+    template; both are cleared between mixes).  Per mix: chunks pruned a
+    window against the total, slots of the two equal, ms a window and p50
+    latency as medians of 3 turns of 4 queued windows, ``query/prune`` host
+    ms cold and warm (and the bounds' build, ``query/prune_bounds``, in
+    the cold window), the device busy share of one window on and off
+    (torch.profiler), recall@10 of the pruned rows against the f64 oracle
+    on 256 queries.  Returns the launch counts of its served windows."""
+    k = 10
+    scorer = bm25.new()
+    cfg = ix.config
+    t = time.perf_counter()
+    d_on, d_off = DeviceIndex(ix, device="cuda"), DeviceIndex(ix, device="cuda")
+    log(f"3p two DeviceIndexes (pruning on / off): {time.perf_counter() - t:.1f} s")
+    launches = dict.fromkeys(("full", "lanes", "merge_topk"), 0)
+
+    def serve(d, on, q, n=4):
+        cfg.prune_blocks = on
+        reset_bm25_counts()
+        out = serve_queued(d, q, scorer, k, n)
+        snap = pdev.metrics.snapshot()
+        for key in launches:
+            launches[key] += bm25_counts()[key]
+        return out, snap
+
+    try:
+        for name, q in prune_mixes(vocab, cdf).items():
+            for d in (d_on, d_off):
+                d._comp_templates.clear()
+            (cold_ms, _l, on0), snap = serve(d_on, True, q, n=1)
+            hist, ctr = snap["histograms"], snap["counters"]
+            bounds = hist.get("query/prune_bounds", {"count": 0, "mean_us": 0.0})
+            cold = (f"cold window {cold_ms:.3f} ms: plan {hist['query/plan']['mean_us'] / 1e3:.3f}, "
+                    f"of it bounds {bounds['count'] * bounds['mean_us'] / 1e3:.3f} ms "
+                    f"({bounds['count']} builds), prune {hist['query/prune']['mean_us'] / 1e3:.3f} "
+                    f"({int(ctr.get('prune/cache_fills', 0))} memo fills)")
+            (_ms, _l, off0), _snap = serve(d_off, False, q, n=1)
+            for a, b in zip(on0[1:], off0[1:]):  # slots20: slots and keys
+                np.testing.assert_array_equal(a, b, err_msg=f"3p {name}: pruned and unpruned rows differ")
+            plan, _fb = d_off.plan_batch(q, TOK, scorer)
+            total = int(plan.nchunks.sum())
+            ms = {True: [], False: []}
+            p50 = {True: [], False: []}
+            phases = {True: [], False: []}
+            warm_prune, pruned, refreezes = [], [], 0
+            for turn in range(4):  # the first pair settles the templates
+                for on, d in ((True, d_on), (False, d_off)):
+                    (w_ms, lat, arrays), snap = serve(d, on, q)
+                    np.testing.assert_array_equal(arrays[1], on0[1])
+                    if turn == 0:
+                        continue
+                    refreezes += snap["counters"].get("template_refreezes", 0)
+                    phases[on].append({p: snap["histograms"][f"query/{p}"]["mean_us"] / 1e3
+                                       for p in HOST_PHASES if f"query/{p}" in snap["histograms"]})
+                    ms[on].append(w_ms)
+                    p50[on].append(float(np.median(lat)))
+                    if on:
+                        warm_prune.append(snap["histograms"]["query/prune"]["mean_us"] / 1e3)
+                        pruned.append(snap["counters"].get("prune/pruned_chunks", 0) / 4)
+            log(f"3p {name}: chunks pruned a window {pruned[-1]:g} of {total} "
+                f"({100 * pruned[-1] / total:.2f}%); slots bit-equal on / off; {cold}")
+            log(f"3p {name}: on {np.median(ms[True]):.3f} ms/window (turns "
+                f"{', '.join(f'{v:.3f}' for v in ms[True])}), p50 {np.median(p50[True]):.1f} ms; off "
+                f"{np.median(ms[False]):.3f} ms/window ({', '.join(f'{v:.3f}' for v in ms[False])}), "
+                f"p50 {np.median(p50[False]):.1f} ms (3 turns of 4 queued windows, host clock, "
+                f"{card}); query/prune warm {np.median(warm_prune):.3f} ms a window; "
+                f"refreezes in the timed turns {int(refreezes)}")
+            for on in (True, False):
+                log(f"3p {name} {'on' if on else 'off'} host phases (mean ms a window, median of the "
+                    "turns): " + ", ".join(f"{p} {np.median([t[p] for t in phases[on]]):.3f}"
+                                           for p in phases[on][0]))
+            for on, d in ((True, d_on), (False, d_off)):
+                cfg.prune_blocks = on
+                log(f"3p {name} pruning {'on' if on else 'off'}, profiled:")
+                profile_windows(lambda i, d=d: d.query_batch_async(q, scorer, top_k=k), n=2)
+            cfg.prune_blocks = True
+            _s, slots, keys = d_on.query_batch_async(q[:256], scorer, top_k=k).get_arrays()
+            np.testing.assert_array_equal(slots, on0[1][:256])
+            recall = bm25_recall(ix, q[:256], slots, keys, k)
+            log(f"3p {name}: recall@{k} of the pruned rows against the f64 oracle on 256 queries: "
+                f"{recall!r}")
+            assert recall >= 0.999, recall
+            if name == "single":
+                assert pruned[-1] > 0, f"3p {name}: nothing pruned"
+    finally:
+        cfg.prune_blocks = True
+    log(f"3p launches over its served windows: {launches}")
+    return launches
 
 
 def range_window(window):
@@ -1375,7 +1524,7 @@ def main():
     errs["merge_topk"] = phase_merge_kernels()
     probe_launches, probe_times, probe_library_ms = phase_probe()
     errs["probe_add"] = 0.0  # bit-equal, asserted
-    launches, win_errs, times, ix, dix, windows = phase_main(scorer, card)
+    launches, win_errs, times, ix, dix, windows, zipf = phase_main(scorer, card)
     log(f"K5 launches on the main path: {launches['merge_topk']}")
     graph_launches = phase_graphs(ix, dix, windows, scorer, card)
     for key in ("full", "lanes", "merge_topk"):
@@ -1383,7 +1532,11 @@ def main():
     launches["merge_topk"] += phase_custom(ix, dix, windows[0][:256])
     launches["merge_topk"] += phase_ranges(ix, dix, windows[0], scorer, win_errs, times)
     phase_z2o_1m(ix, dix, windows[0])
-    del ix, dix
+    del dix
+    prune_launches = phase_prune(ix, *zipf, card)
+    for key in ("full", "lanes", "merge_topk"):
+        launches[key] += prune_launches[key]
+    del ix
     z2o_counts_, z2o_err, z2o_times = phase_z2o_main(card)
     launches["fused_z2o"] = z2o_counts_["fused_z2o"]
     win_errs["fused_z2o"] = z2o_err

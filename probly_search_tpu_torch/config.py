@@ -104,18 +104,21 @@ class IndexConfig:
         if self.result_format:
             return self.result_format
         return "compact" if self.compact_results else "f32"
-    # Block-max safe top-k pruning (index/prune.py): plan-time removal of
-    # posting chunks that provably cannot reach the requested top-k —
-    # per-chunk score upper bounds vs an achievable k-th-best threshold,
-    # the production-engine WAND/block-max machinery adapted to this
-    # engine's chunked execution model.  EXACT: surviving top-k rows are
-    # bit-equal to the unpruned window (tests/test_prune.py asserts it);
-    # pruning auto-disables wherever safety cannot be proven (k >
-    # prune_max_top_k, negative boosts, term-range queries, scorers
+    # Block-max safe top-k pruning (index/prune.py), honoured by the port's
+    # DeviceIndex: plan-time removal of posting chunks that provably cannot
+    # reach the requested top-k — per-chunk score upper bounds vs an
+    # achievable k-th-best threshold, the production-engine WAND/block-max
+    # machinery adapted to this engine's chunked execution model; the job
+    # tables equal the JAX engine's bit for bit.  EXACT: surviving top-k
+    # rows are bit-equal to the unpruned window (tests/test_torch_prune.py
+    # asserts it); pruning auto-disables wherever safety cannot be proven
+    # (k > prune_max_top_k, negative boosts, term-range queries, scorers
     # without device_impact, non-finite field averages).  Wins are on
-    # single-term / idf-skewed queries; uniform multi-term disjunctions
-    # (the headline bench) prune ~nothing — the known weak spot of
-    # WAND-family bounds (see the prune.py module docstring).
+    # single-term queries; uniform multi-term disjunctions (the bench mix)
+    # prune ~nothing — the known weak spot of WAND-family bounds (see the
+    # prune.py module docstring).  Read when a DeviceIndex is built (its
+    # snapshot keeps the bounds' host copies only if set) and on every
+    # window.
     prune_blocks: bool = True
     # Relative safety margin baked into the static bounds (inflates chunk
     # upper bounds, deflates thresholds).  Must dominate the device's f32

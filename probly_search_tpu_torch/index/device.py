@@ -40,9 +40,15 @@ Two-phase scorers (zero-to-one) take the z2o window engine of
 ``ops/z2o_device.py``, which shares this module's job expansion, packed
 result formats and ``PendingBatch``.
 
-What the port does not do yet (each raises or is documented): block-max
-pruning (``prune_blocks`` is not honoured; pruning is exact, so results are
-unchanged), light classes, per-class dispatch and sharding.
+Block-max pruning (``IndexConfig.prune_blocks``, on by default): the term-
+plan pool carries each job's impact bounds (``index/prune.py``), and after
+the heavy-cache splice ``prune_plan_cached`` drops or splits the job rows
+whose chunks provably cannot reach the top-k, before packing.  It changes
+job tables only; the surviving top-k rows are bit-equal to the unpruned
+window's.
+
+What the port does not do yet (each raises): light classes, per-class
+dispatch and sharding.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from ..ops.merge import INVALID_KEY
 from ..utils.metrics import metrics
 from ..utils.tokenizers import whitespace_tokenizer
 from .core import Index
+from .prune import _segment_arange, build_job_bounds, prune_plan_cached
 from .segment import escape_terms_fixed, probe_terms_fixed
 
 _MAX_CHAR = "\U0010FFFF"  # prefix upper-bound sentinel
@@ -377,17 +384,6 @@ def _bucket_vec(n: np.ndarray, buckets: Sequence[int], minimum: int) -> np.ndarr
     return out
 
 
-def _segment_arange(counts: np.ndarray) -> np.ndarray:
-    """[0..c0), [0..c1), ... concatenated (vectorized)."""
-    total = int(counts.sum())
-    if total == 0:
-        return np.zeros(0, dtype=np.int64)
-    ends = np.cumsum(counts)
-    out = np.arange(total, dtype=np.int64)
-    out -= np.repeat(ends - counts, counts)
-    return out
-
-
 @dataclass
 class PlannedJobs:
     """Flat job table for a batch, sorted by query."""
@@ -399,6 +395,14 @@ class PlannedJobs:
     nchunks: np.ndarray  # int64[B] — total chunks per query
     njobs: np.ndarray  # int64[B]
     has_range: np.ndarray  # bool[B] — query carries a term-range job
+    # Term-plan pool row per job (indexes the pooled bound arrays of
+    # block-max pruning, index/prune.py); None when unknown (no pruning).
+    pool_rows: Optional[np.ndarray] = None
+    # Query-plan pool qid per window query and the pool they index, taken
+    # under the plan lock by plan_batch (the prune memo of
+    # prune.prune_plan_cached); None outside plan_batch (direct pass).
+    qids: Optional[np.ndarray] = None
+    qp: Optional[dict] = None
 
 
 def _not_ported(what: str, item: str):
@@ -573,6 +577,13 @@ class DeviceIndex:
         R = 4 if (2 + 2 * F) <= 4 else -(-(2 + 2 * F) // 8) * 8
         rec = np.zeros((R, P + C), dtype=np.int32)
         rec[0] = -1  # slack tail: never in any job's payload range
+        # Host copies the pruning bounds read (index/prune.py): bounds are
+        # built lazily per scorer, and the index's doc lengths and liveness
+        # mutate (vacuum compacts them), so a stale DeviceIndex reads its
+        # own snapshot, as it reads its own rec.
+        self._post_doc_all = self._post_tf_all = None
+        self._doc_len_snap = self._alive_snap = None
+        self._field_avg_host = np.array([fd.avg for fd in index._fields], dtype=np.float64)
         if P:
             post_doc = np.concatenate(doc_parts)
             post_tf = np.concatenate(tf_parts)
@@ -582,6 +593,11 @@ class DeviceIndex:
             rec[1 : 1 + F, :P] = post_tf.T
             rec[1 + F : 1 + 2 * F, :P] = doc_len[post_doc].view(np.int32).T
             rec[1 + 2 * F, :P] = alive[post_doc]
+            if index.config.prune_blocks:
+                self._post_doc_all = post_doc
+                self._post_tf_all = post_tf
+                self._alive_snap = alive.copy()
+                self._doc_len_snap = index._doc_len[:S].copy()
         self.rec = padded_rows(rec, self.device)
         self._key_bits = key_bits_for(S, self._qterm_bits)
         self.field_avg = torch.from_numpy(
@@ -681,6 +697,22 @@ class DeviceIndex:
                 "over_cap": np.zeros(0, dtype=bool),  # per term
                 "range": np.zeros(0, dtype=bool),  # per job: term-range job
             }
+            # Block-max pruning bounds ride along per job (index/prune.py).
+            # The decision is frozen at pool creation, so every pool row has
+            # a bounds row (a later config flip must not misalign them).
+            if (
+                self.config.prune_blocks
+                and hasattr(scorer, "device_impact")
+                and self._post_tf_all is not None
+                and np.isfinite(self._field_avg_host).all()
+            ):
+                F, k_cap = self.num_fields, int(self.config.prune_max_top_k)
+                pool["prune_enabled"] = True
+                pool["prune_ub"] = np.zeros((0, F), np.float32)
+                pool["prune_topv"] = np.zeros((0, F, k_cap), np.float32)
+                pool["prune_cub_off"] = np.zeros(0, np.int64)  # first chunk row per job
+                pool["prune_cub"] = np.zeros((0, F), np.float32)
+                pool["prune_cub_min"] = np.zeros((0, F), np.float32)
             self._plan_pools[_scorer_cache_key(scorer)] = pool
         ids = pool["ids"]
         miss = [t for t in uniq_terms if t not in ids]
@@ -857,6 +889,20 @@ class DeviceIndex:
             jidx, weights=job_chunks.astype(np.float64), minlength=M
         ).astype(np.int64) if len(jidx) else np.zeros(M, dtype=np.int64)
 
+        if pool.get("prune_enabled"):
+            with metrics.timer("query/prune_bounds"):
+                b = build_job_bounds(
+                    self, scorer, np.asarray(jstart, np.int64), np.asarray(jlen, np.int64),
+                    np.asarray(jrange, bool), C_, int(cfg.prune_max_top_k), float(cfg.prune_margin),
+                )
+            pool["prune_ub"] = np.concatenate([pool["prune_ub"], b["ub"]])
+            pool["prune_topv"] = np.concatenate([pool["prune_topv"], b["topv"]])
+            pool["prune_cub_off"] = np.concatenate(
+                [pool["prune_cub_off"], b["cub_off"][:-1] + len(pool["prune_cub"])]
+            )
+            pool["prune_cub"] = np.concatenate([pool["prune_cub"], b["cub"]])
+            pool["prune_cub_min"] = np.concatenate([pool["prune_cub_min"], b["cub_min"]])
+
         base = len(pool["off"]) - 1
         for i, t in enumerate(miss):
             ids[str(t)] = base + i
@@ -910,6 +956,9 @@ class DeviceIndex:
                 nchunks=qp["nchunks"][qids],
                 njobs=nj,
                 has_range=qp["has_range"][qids],
+                pool_rows=qp["pool_rows"][rows],
+                qids=qids,
+                qp=qp,
             ), fallback
 
     def _qplan_pool(self, scorer, tokenizer):
@@ -927,6 +976,9 @@ class DeviceIndex:
                 "njobs": np.zeros(0, dtype=np.int64),
                 "has_range": np.zeros(0, dtype=bool),
                 "fallback": np.zeros(0, dtype=bool),
+                # Term-pool row per pooled job (aligns the pruning bounds,
+                # index/prune.py).
+                "pool_rows": np.zeros(0, dtype=np.int64),
             }
             self._qplan_pools[key] = qp
         return qp
@@ -943,8 +995,10 @@ class DeviceIndex:
             words_m = np.zeros((0, 3), dtype=np.int32)
             nch_m = np.zeros(M, dtype=np.int64)
             rng_m = np.zeros(M, dtype=bool)
+            prows_m = np.zeros(0, dtype=np.int64)
         else:
             nj_m, words_m, nch_m, rng_m = plan.njobs, plan.words, plan.nchunks, plan.has_range
+            prows_m = plan.pool_rows
         base = len(qp["off"]) - 1
         for i, q in enumerate(miss):
             qp["ids"][q] = base + i
@@ -954,6 +1008,7 @@ class DeviceIndex:
         qp["njobs"] = np.concatenate([qp["njobs"], nj_m])
         qp["has_range"] = np.concatenate([qp["has_range"], rng_m])
         qp["fallback"] = np.concatenate([qp["fallback"], fb_m])
+        qp["pool_rows"] = np.concatenate([qp["pool_rows"], prows_m])
 
     def _plan_batch_impl(self, queries: Sequence[str], tokenizer, scorer):
         B = len(queries)
@@ -1023,14 +1078,14 @@ class DeviceIndex:
         if len(over_lanes):
             fallback.extend(int(q) for q in over_lanes)
             keep = ~np.isin(jquery, over_lanes)
-            jquery, words = jquery[keep], words[keep]
+            jquery, words, rows = jquery[keep], words[keep], rows[keep]
             nchunks[over_lanes] = 0
             njobs = np.bincount(jquery, minlength=B)
             if len(jquery) == 0:
                 return None, fallback
         return PlannedJobs(
             jquery=jquery, words=words, nchunks=nchunks, njobs=njobs.astype(np.int64),
-            has_range=has_range,
+            has_range=has_range, pool_rows=rows,
         ), fallback
 
     @staticmethod
@@ -1357,6 +1412,18 @@ class DeviceIndex:
 
         return step
 
+    def prune(self, plan: Optional[PlannedJobs], scorer, k: int, fields_boost):
+        """Block-max safe top-k pruning of a window's plan (``index/prune.py``,
+        timer ``query/prune``) when ``prune_blocks`` is set and the scorer's
+        term-plan pool carries bounds; else ``plan`` unchanged."""
+        if plan is None or not self.config.prune_blocks:
+            return plan
+        pool = self._plan_pools.get(_scorer_cache_key(scorer))
+        if pool is None or not pool.get("prune_enabled"):
+            return plan
+        with metrics.timer("query/prune"):
+            return prune_plan_cached(self, plan, pool, k, fields_boost)
+
     def _pinned(self, words: np.ndarray):
         """The window's int32 words in pinned host memory (on the CPU: a
         plain view)."""
@@ -1471,10 +1538,18 @@ class DeviceIndex:
                         nchunks=nchunks2,
                         njobs=np.bincount(jq2, minlength=len(queries)),
                         has_range=plan.has_range,
+                        pool_rows=plan.pool_rows[keep] if plan.pool_rows is not None else None,
+                        # Spliced queries drop to 0 jobs: the cached prune
+                        # sees them as trivially unchanged (index/prune.py).
+                        qids=plan.qids,
+                        qp=plan.qp,
                     )
                     if len(jq2)
                     else None
                 )
+        # Block-max pruning after the heavy-result splice, so heavy-cache
+        # keys stay independent of pruning; exact (index/prune.py).
+        plan = self.prune(plan, scorer, k, fields_boost)
         if plan is None:
             return PendingBatch(
                 self, len(queries), host_rows=host_rows, k=k,

@@ -152,6 +152,21 @@ class BM25(BaseScoreCalculator):
         idf = np.log(1.0 + (n_docs - freq + 0.5) / (freq + 0.5))  # bm25.rs:56
         return (idf * expansion_boost).astype(np.float32)
 
+    def device_impact(self, tf, flen, avg):
+        """Per-posting per-field impact for block-max pruning bounds
+        (index/prune.py): the score factor with idf and boosts divided out,
+        BM25's tf-norm (bm25.rs:71-87).  Host f64; a posting's full score is
+        ``scale * sum_f boost_f * impact_f``, monotone in each impact for
+        non-negative boosts, which makes per-chunk impact maxima valid score
+        upper bounds."""
+        import numpy as np
+
+        k1 = float(self.bm25k1)
+        b = float(self.bm25b)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            denom = k1 * ((1.0 - b) + b * (flen / avg)) + tf
+            return np.where(tf > 0.0, ((k1 + 1.0) * tf) / denom, 0.0)
+
     def device_score_lanes(self, lanes):
         """Vectorized per-lane score (see index/device.py ScoreLanes layout:
         [B, NC, F, C] with the posting lane dim C minor); f32[B, NC, C]."""

@@ -86,7 +86,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.merge_topk.restype = i
     lib.merge_topk_init.argtypes = [i]
     lib.merge_topk_init.restype = i
-    lib.probe_add.argtypes = [i, p, p, i, p]
+    lib.probe_add.argtypes = [p, p, i, p]
     lib.probe_add.restype = i
     return lib
 

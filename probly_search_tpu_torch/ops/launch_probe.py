@@ -3,8 +3,13 @@
 Counterpart of ``pallas_add`` in ``benchmarks/profile_launch.py``, the JAX
 repo's probe of the fixed cost of one kernel launch.  On a CUDA tensor
 ``probe_add`` launches the hand-written kernel of ``csrc/launch_probe.cu``
-(one block); on a CPU tensor it runs ``probe_add_reference``, the plain
-torch version.  ``launches`` counts kernel launches, never the CPU path.
+(one 16-B word a thread; a scalar kernel for a pointer that is not 16-B
+aligned); on a CPU tensor it runs ``probe_add_reference``, the plain torch
+version.  ``launches`` counts kernel launches, never the CPU path.
+
+The wrapper keeps its host cost small: the library's entry point is looked
+up once, the stream is read as a raw handle, and it checks only what the
+kernel needs (f32, contiguous, fewer than 2^31 elements).
 """
 
 from __future__ import annotations
@@ -12,12 +17,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_query import _check
 
 launches = {"probe_add": 0}
 
 # The probe's shape in the JAX benchmark.
 SHAPE = (8, 512)
+
+_lib = None
 
 
 def probe_add_reference(x):
@@ -27,22 +33,27 @@ def probe_add_reference(x):
 
 def probe_add(x):
     """``x + 1`` by one launch of the probe kernel (CUDA) or in plain torch
-    (CPU).  ``x`` is a contiguous f32 tensor of at most 2^31 - 1 elements."""
-    if x.device.type == "cpu":
+    (CPU).  ``x`` is a contiguous f32 tensor of fewer than 2^31 elements."""
+    global _lib
+    dev = x.device
+    if dev.type == "cpu":
         return probe_add_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"probe_add runs on cpu or cuda, not {x.device}")
-    _check("x", x, torch.float32, None, x.device)
-    if x.numel() >= 2**31:
-        raise ValueError(f"probe_add takes fewer than 2^31 elements, got {x.numel()}")
-    lib = _build.load()
+    if dev.type != "cuda":
+        raise ValueError(f"probe_add runs on cpu or cuda, not {dev}")
+    index = torch.cuda.current_device()
+    if dev.index is not None and dev.index != index:
+        with torch.cuda.device(dev.index):  # the kernel launches on the current device
+            return probe_add(x)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"probe_add takes a contiguous float32 tensor, got {x.dtype}")
+    n = x.numel()
+    if n >= 2**31:
+        raise ValueError(f"probe_add takes fewer than 2^31 elements, got {n}")
+    if _lib is None:
+        _lib = _build.load()
     out = torch.empty_like(x)
-    index = torch.cuda.current_device() if x.device.index is None else x.device.index
-    err = lib.probe_add(
-        index, x.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    err = _lib.probe_add(x.data_ptr(), out.data_ptr(), n, torch._C._cuda_getCurrentRawStream(index))
     if err:
-        raise RuntimeError(f"probe_add launch failed: {lib.fused_query_error_string(err).decode()}")
+        raise RuntimeError(f"probe_add launch failed: {_lib.fused_query_error_string(err).decode()}")
     launches["probe_add"] += 1
     return out

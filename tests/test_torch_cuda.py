@@ -403,6 +403,67 @@ def test_probe_matches_plain_on_cuda(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset_4B"])
+@pytest.mark.parametrize("n", [1, 3, 4096, 4099, 1 << 20])
+def test_probe_sizes_on_cuda(n, offset):
+    """P1 at sizes with and without a tail of n % 4 floats, and on a view
+    whose pointer is 4 B past a 16-B boundary (the scalar kernel):
+    bit-equal to ``x + 1``, one launch a call."""
+    _cuda()
+    buf = np.random.default_rng(n).standard_normal(n + 1).astype(np.float32)
+    buf = torch.from_numpy(buf).cuda()
+    x = buf[offset : offset + n]
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = lp.launches["probe_add"]
+    got = lp.probe_add(x)
+    torch.cuda.synchronize()
+    assert lp.launches["probe_add"] == before + 1
+    assert torch.equal(got, lp.probe_add_reference(x))
+
+
+@pytest.mark.cuda
+def test_pruned_window_on_cuda_matches_unpruned():
+    """Block-max pruning on the card: a window whose pruned plan splits a
+    job in the middle (two kept-chunk runs: the second starts at its
+    128-aligned chunk base) and drops whole jobs (zero-length rows in the
+    packed job tables), served with pruning on and off: bit-equal rows, and
+    equal to the CPU's pruned rows."""
+    _cuda()
+    from probly_search_tpu_torch import Index, IndexConfig
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix = Index(1, config=IndexConfig(chunk_size=128, result_format="f32"))
+    ix.add_documents_columnar(list(range(600)), [[
+        "common common common common" if (i < 5 or i >= 595)
+        else f"common f{i % 97} g{i % 89} h{i % 83} j{i % 79}"
+        for i in range(600)
+    ]])
+    window = ["common", "f1 common", "g2 h3", "zzz", "common f1"] * 4
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    plan, _ = dix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
+    pruned = dix.prune(plan, bm25.new(), 3, [1.0])
+    assert pruned.njobs[0] == plan.njobs[0] + 1, "the job of 'common' splits"
+    assert (pruned.njobs[1:] < plan.njobs[1:]).any(), "whole jobs drop"
+    split = pruned.words[pruned.jquery == 0]
+    assert split[1, 0] % 128 == 0 and split[1, 0] > split[0, 0]
+    before = metrics.counters.get("prune/pruned_chunks", 0)
+    launches = fq.launches["full"]
+    on = dix.query_batch_async(window, bm25.new(), top_k=3).get_arrays()
+    assert metrics.counters.get("prune/pruned_chunks", 0) > before
+    assert fq.launches["full"] > launches
+    ix.config.prune_blocks = False
+    try:
+        off = dix.query_batch_async(window, bm25.new(), top_k=3).get_arrays()
+    finally:
+        ix.config.prune_blocks = True
+    np.testing.assert_array_equal(on[1], off[1])
+    np.testing.assert_array_equal(on[0], off[0])
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    cpu = cpu.query_batch_async(window, bm25.new(), top_k=3).get_arrays()
+    assert_topk_agree(on[0], on[1], cpu[0], cpu[1])
+
+
+@pytest.mark.cuda
 def test_range_window_on_cuda_matches_cpu():
     """A window with term-range queries (range_min_expansions 4, chunk 128,
     two segments, a latent delete) on the card against the CPU: the range

@@ -9,7 +9,8 @@ as a CUDA graph that later windows of that template replay.  Also
 
 On the CPU: the JAX engine's template tests on the port, manifests across
 the two packages (equal templates, equal prewarm counts, no refreeze when
-serving afterwards), the light-class refusal, the joint drain against
+serving afterwards; block-max pruning off in both engines, and on in both),
+the light-class refusal, the joint drain against
 per-window drains.  On a card (``cuda``): graph replays bit-equal to the
 eager step over two alternating windows in a depth-4 pipeline, with
 ``prefetch_results`` on and off; the launch tally of capture and replay; a
@@ -52,16 +53,20 @@ def _port_index(texts, device="cpu", **cfg):
     return ix
 
 
-def _jax_index(texts):
-    """The JAX engine's index of ``texts``.  Block-max pruning is off: it
-    moves queries into smaller classes, so the JAX engine would freeze
-    another composition than the port, which has no pruning yet."""
+def _jax_index(texts, prune_blocks):
+    """The JAX engine's index of ``texts``.  Block-max pruning moves queries
+    into smaller classes, so both engines of a cross-package case run with
+    the same ``prune_blocks``."""
     from probly_search_tpu import Index as JIndex
     from probly_search_tpu import IndexConfig as JConfig
 
-    ix = JIndex(1, config=JConfig(template_compositions=True, prune_blocks=False))
+    ix = JIndex(1, config=JConfig(template_compositions=True, prune_blocks=prune_blocks))
     ix.add_documents_columnar(list(range(len(texts))), [texts])
     return ix
+
+
+def _pruned_chunks(m):
+    return m.snapshot()["counters"].get("prune/pruned_chunks", 0)
 
 
 def _refreezes():
@@ -106,18 +111,23 @@ def test_save_templates_skips_process_local_scorer_keys(tmp_path):
         assert json.load(f) == {}
 
 
-def test_jax_manifest_loads_into_port(tmp_path):
-    texts, queries = _corpus()
-    jdix = _jax_index(texts).device_index()
+def _jax_manifest_into_port(tmp_path, prune):
     from probly_search_tpu import bm25 as jbm25
+    from probly_search_tpu.utils.metrics import metrics as jmetrics
 
+    texts, queries = _corpus()
+    jdix = _jax_index(texts, prune).device_index()
+    j0 = _pruned_chunks(jmetrics)
     jrows = jdix.query_batch(queries[:16], jbm25.new(), top_k=5)
+    assert (_pruned_chunks(jmetrics) > j0) == prune
     path = str(tmp_path / "jax.json")
     assert jdix.save_templates(path) == 1
 
     # The port freezes the same template from the same window.
-    own = _port_index(texts).device_index()
+    own = _port_index(texts, prune_blocks=prune).device_index()
+    p0 = _pruned_chunks(metrics)
     own.query_batch(queries[:16], bm25.new(), top_k=5)
+    assert (_pruned_chunks(metrics) > p0) == prune
     with open(path) as f:
         raw = json.load(f)
     assert {repr(k): [list(e) for e in v] for k, v in own._comp_templates.items()} == {
@@ -125,9 +135,9 @@ def test_jax_manifest_loads_into_port(tmp_path):
     }
     assert {len(e) for v in raw.values() for e in v} == {4}  # (nc, nj, cap, cw)
 
-    dix = _port_index(texts).device_index()
+    dix = _port_index(texts, prune_blocks=prune).device_index()
     assert dix.load_templates(path) == 1
-    jdix2 = _jax_index(texts).device_index()
+    jdix2 = _jax_index(texts, prune).device_index()
     assert jdix2.load_templates(path) == 1
     assert dix.prewarm(bm25.new()) == jdix2.prewarm(jbm25.new()) == 1
     before = _refreezes()
@@ -137,19 +147,28 @@ def test_jax_manifest_loads_into_port(tmp_path):
         assert [r.key for r in a] == [r.key for r in b]
 
 
-def test_port_manifest_loads_into_jax(tmp_path):
+def test_jax_manifest_loads_into_port(tmp_path):
+    _jax_manifest_into_port(tmp_path, prune=False)
+
+
+def test_jax_manifest_loads_into_port_pruned(tmp_path):
+    """Pruning on in both engines: the same (pruned) composition."""
+    _jax_manifest_into_port(tmp_path, prune=True)
+
+
+def _port_manifest_into_jax(tmp_path, prune):
     from probly_search_tpu import bm25 as jbm25
     from probly_search_tpu.utils.metrics import metrics as jmetrics
 
     texts, queries = _corpus()
-    dix = _port_index(texts).device_index()
+    dix = _port_index(texts, prune_blocks=prune).device_index()
     rows = dix.query_batch(queries[:16], bm25.new(), top_k=5)
     path = str(tmp_path / "port.json")
     assert dix.save_templates(path) == 1
 
-    jdix = _jax_index(texts).device_index()
+    jdix = _jax_index(texts, prune).device_index()
     assert jdix.load_templates(path) == 1
-    dix2 = _port_index(texts).device_index()
+    dix2 = _port_index(texts, prune_blocks=prune).device_index()
     assert dix2.load_templates(path) == 1
     assert jdix.prewarm(jbm25.new()) == dix2.prewarm(bm25.new()) == 1
     before = jmetrics.counters["template_refreezes"]
@@ -157,6 +176,16 @@ def test_port_manifest_loads_into_jax(tmp_path):
     assert jmetrics.counters["template_refreezes"] == before
     for a, b in zip(rows, jrows):
         assert [r.key for r in a] == [r.key for r in b]
+
+
+def test_port_manifest_loads_into_jax(tmp_path):
+    _port_manifest_into_jax(tmp_path, prune=False)
+
+
+def test_port_manifest_loads_into_jax_pruned(tmp_path):
+    """Pruning on in both engines: JAX serves the port's pruned composition
+    without a refreeze."""
+    _port_manifest_into_jax(tmp_path, prune=True)
 
 
 def test_bench_manifest_loads():

@@ -12,8 +12,11 @@ call holds the host), then synchronises (host clock to drained).  K5 runs on
 B = 2 rows of 3,072 unsorted lanes, k = 10 (a small term-range class); K3
 (phase "lanes") on 4 rows of 24 chunks of 1,024 lanes; K4 on 16 rows of 2
 chunks of 1,024 lanes, 2 fields, k = 10 (tests/torch_util.py's seeded
-tables); P1 on its f32[8, 512].  Prints the card's name and power limit,
-then one JSON line of medians in microseconds per call.
+tables); P1 on its f32[8, 512].  For P1 and ``torch.add`` also the time a
+launch in a CUDA graph of 16 calls (CUDA events, L2 warm) and the device
+time of one call (captured in a CUDA graph, replayed after a write of 4x
+the L2).  Prints the card's name and power limit, then one JSON line of
+medians in microseconds per call.
 """
 
 from __future__ import annotations
@@ -94,7 +97,59 @@ def main():
             total.append(1e6 * (t2 - t) / args.calls)
         out[f"{name}_enqueue_us"] = float(np.median(enq))
         out[f"{name}_drained_us"] = float(np.median(total))
+    for name in ("probe", "torch_add"):
+        fn = calls[name]
+        out[f"{name}_graph16_us"] = graph_us(fn, 16, args.rounds * 10) / 16
+        out[f"{name}_device_us"] = cold_us(fn, args.rounds * 10)
     print(json.dumps(out))
+
+
+def _capture(fn, n):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return g
+
+
+def _replay_us(g, reps, flush=None):
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(1e3 * a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_us(fn, n, reps):
+    """Median CUDA-event time of one replay of ``n`` calls of ``fn``
+    captured as one CUDA graph, L2 warm."""
+    g = _capture(fn, n)
+    g.replay()
+    return _replay_us(g, reps)
+
+
+def cold_us(fn, reps):
+    """Device time of one call of ``fn`` captured in a CUDA graph, its
+    replay timed after a write of four times the L2 (as chip_smoke.py)."""
+    import torch
+
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    flush = torch.empty(l2, dtype=torch.int32, device="cuda")
+    g = _capture(fn, 1)
+    g.replay()
+    return _replay_us(g, reps, flush)
 
 
 if __name__ == "__main__":

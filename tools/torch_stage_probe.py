@@ -295,6 +295,8 @@ def probe_window(root: str, stages: bool):
     torch.cuda.synchronize()
     print(f"index and warm-up: {time.time() - t:.1f} s", flush=True)
     plan, _fb = dix.plan_batch(window, pdev.whitespace_tokenizer, scorer)
+    if hasattr(dix, "prune"):  # the window's classes as served (block-max pruning)
+        plan = dix.prune(plan, scorer, 10, [1.0] * dix.num_fields)
     tkey = (pdev._scorer_cache_key(scorer), 10, "slots20", len(window))
     dispatches, _specs = dix._pack_dispatches_template(len(window), plan, tkey)
     scal = torch.cat([dix.field_avg, torch.ones(1, device="cuda")])
