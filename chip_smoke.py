@@ -77,6 +77,25 @@ Phases (any failure raises, so the exit code is not 0):
      exceeds every achievable threshold at this size: nothing can prune);
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route, and the rows held against the f64 oracle on 64 queries;
+  3s. the doc-sharded engine (parallel/) on that index: 4 doc shards on one
+     card (make_mesh(1, 4, devices=["cuda:0"] * 4)); the sharded snapshot's
+     build seconds and bytes on the card; 8 pipelined windows of phase 3
+     (depth 4, paired late drains) in turns single-device eager, sharded,
+     sharded, single-device eager (ms/window, QPS, p50, the sharded/* host
+     phases, launches); both windows in f32 against the single-device
+     engine by the testing rule, the served slots20 slots equal to them,
+     recall@10 against the f64 oracle on 256 queries; a head-term window
+     (the 16 most frequent terms: classes past 16,384 lanes a shard, K3 +
+     K5) against the single-device engine; 3r's range window cold and warm,
+     its range queries against 3r's f64 vectorized host rows, 0 host rows;
+     3p's single mix with the trim on and off (chunks trimmed a window,
+     slots bit-equal); every class of shard 0 of the first window, of the
+     head window and of the range window, and the widest class of each
+     other shard, held kernel against plain at that shard's key_bits (K1;
+     K3 + K5; the range classes' K5); device busy of one sharded window
+     and one single-device window under torch.profiler; on a host with
+     several cards also a mesh over distinct cards (else logged as not
+     run);
   4. the zero-to-one main path at the repo's zero_to_one_50k configuration
      (benchmarks/zero_to_one_50k.py: 50,000 docs, a 3-token title and an
      8-token body, Zipf(1.05) over 4,000 terms, seed 7; 2-term queries with
@@ -86,7 +105,12 @@ Phases (any failure raises, so the exit code is not 0):
      ms/window, QPS, recall@10 against the f64 oracle on 256 queries, every
      kernel class of one window held kernel against plain on its real
      tables (CUDA-event and device times), and a torch.profiler breakdown
-     of one window.
+     of one window;
+  4s. that configuration on the doc-sharded engine, mesh (2, 2) on one card
+     (the data axis splits each window): two 16,384-query windows timed,
+     slots equal to the single-device engine's, tie-aware recall@10
+     against the f64 oracle on 256 queries, and K4 held against plain on
+     every K4 class of shard 0 at that shard's key_bits.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits
 with an error before printing any result.
@@ -94,6 +118,7 @@ with an error before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -110,6 +135,8 @@ import torch  # noqa: E402
 
 from bench import make_corpus, make_queries  # noqa: E402
 from probly_search_tpu_torch import DeviceIndex, Index, IndexConfig, bm25, zero_to_one  # noqa: E402
+from probly_search_tpu_torch import ShardedDeviceIndex, make_mesh  # noqa: E402
+from probly_search_tpu_torch.index.prune import prune_plan_sharded_cached  # noqa: E402
 from probly_search_tpu_torch.index import device as pdev  # noqa: E402
 from probly_search_tpu_torch.ops import _build  # noqa: E402
 from probly_search_tpu_torch.ops import fused_merge as fm  # noqa: E402
@@ -145,6 +172,8 @@ FULL_LARGE_K = ((8, 5000), (16, 16384))
 PROBE_CHAINS = (1, 4, 16)
 # The BM25 window's host phases (metrics timers query/<name>), in order.
 HOST_PHASES = ("plan", "prune", "pack", "h2d", "dispatch", "fetch", "drain")
+# The sharded window's host phases (metrics timers sharded/<name>).
+SHARDED_PHASES = ("plan", "prune", "pack", "dispatch", "fetch", "drain")
 INT32_MAX = 2**31 - 1
 SYN_KEY_BITS = fm.key_bits_for(20_000, QB)  # synthetic_rec's docs
 SYN_Z2O_KEY_BITS = fm.key_bits_for(20_000, fz.DOC_SHIFT)
@@ -834,12 +863,18 @@ def phase_main(scorer, card):
     return launches, errs, times, ix, dix, windows, (vocab, cdf)
 
 
+_ORACLE = {}
+
+
 def bm25_recall(ix, sample, slots, keys, k):
     """recall@k of device rows (``slots``, ``keys``) against the f64 oracle
-    ``Index.query`` on the queries ``sample``."""
+    ``Index.query`` on the queries ``sample`` (each query's oracle row is
+    computed once a run)."""
     hits = total = 0
     for qi, q in enumerate(sample):
-        o_keys = {r.key for r in ix.query(q, bm25.new(), TOK, [1.0])[:k]}
+        if (id(ix), q, k) not in _ORACLE:
+            _ORACLE[(id(ix), q, k)] = {r.key for r in ix.query(q, bm25.new(), TOK, [1.0])[:k]}
+        o_keys = _ORACLE[(id(ix), q, k)]
         d_keys = {int(x) for x, sl in zip(keys[qi], slots[qi]) if sl >= 0}
         hits += len(o_keys & d_keys)
         total += len(o_keys)
@@ -1150,6 +1185,10 @@ def range_window(window):
     return w, sorted(set(range(0, len(w), 64)) | {len(w) - 3, len(w) - 2, len(w) - 1})
 
 
+# 3r's f64 vectorized host rows of its range queries, by query (3s reuses them).
+RANGE_ROWS = {}
+
+
 def phase_ranges(ix, dix, window, scorer, errs, times):
     """Term-range jobs at full size (phase 3r); adds K5's checks on the
     window's range classes to ``errs`` / ``times``.  Returns K5's launches
@@ -1230,9 +1269,10 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     t = time.perf_counter()
     hits = total = 0
     rel = 0.0
-    want_keys = []
+    want_keys, want_rows = [], []
     for j, q in enumerate(sub):
         want = scorer.vectorized_query(ix, q, TOK, top_k=k)
+        want_rows.append(want)
         got = [(int(key), float(sc)) for key, sc, sl in zip(k_f[j], s_f[j], sl_f[j]) if sl >= 0]
         assert len(got) == len(want), (q, len(got), len(want))
         want_keys.append({r.key for r in want})
@@ -1241,6 +1281,7 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
         for (_key, sc), r in zip(got, want):
             rel = max(rel, abs(sc - r.score) / max(abs(r.score), 1e-30))
     recall = hits / max(total, 1)
+    RANGE_ROWS.update(zip(sub, want_rows))
     log(f"3r recall@{k} of the {len(sub)} range queries against the f64 vectorized host path: "
         f"{recall!r}, max score rel err {rel:.3g} ({time.perf_counter() - t:.1f} s)")
     assert recall >= 0.999 and rel <= RTOL + ATOL, (recall, rel)
@@ -1285,6 +1326,274 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
         errs["merge_topk"] = max(errs["merge_topk"], err)
         del key, score
     return counts["merge_topk"]
+
+
+# --------------------------------------------------------------------- #
+# phase 3s: the doc-sharded engine                                       #
+# --------------------------------------------------------------------- #
+
+
+def with_format(d, fmt):
+    """``d`` (a DeviceIndex or ShardedDeviceIndex) with its index's config
+    but another result format."""
+    d.config = dataclasses.replace(d._index.config, result_format=fmt)
+    return d
+
+
+def shard_chunks(words, chunk):
+    """Chunks of per-shard job words int32[n, J, 3], summed over shards."""
+    lens = words[:, :, 1].astype(np.int64) & pdev._MAX_JOB_LEN
+    return int(np.where(lens > 0, (words[:, :, 0].astype(np.int64) % 128 + lens + chunk - 1) // chunk, 0).sum())
+
+
+def sharded_plan(sdix, queries, scorer, k):
+    """The window's per-shard job words as ``query_batch_async`` packs them
+    (the trim applied): (planned, class_specs, buf)."""
+    planned, (rows, qp, qids) = (lambda p: (p[:5], p[5]))(
+        sdix.plan_batch(queries, TOK, scorer, with_rows=True)[0])
+    if sdix.config.prune_blocks and "prune_sh" in qp:
+        planned = prune_plan_sharded_cached(sdix, planned, rows, qp, qids, k, [1.0])
+    specs, _layout, buf = sdix._pack_window(planned, len(queries))
+    return planned, specs, buf
+
+
+def check_sharded_classes(sdix, queries, scorer, k, errs, label, every=True):
+    """Kernel against plain on the window's classes as the sharded engine
+    runs them, at each shard's own key_bits: every class of shard 0 (with
+    ``every``) and the widest class of each shard; K1 on the full-phase
+    classes, K3 + K5 on the lanes classes, K5 after the staged lanes on
+    range classes.
+    Folds the largest errors into ``errs``; returns the classes checked by
+    kernel."""
+    _planned, specs, buf = sharded_plan(sdix, queries, scorer, k)
+    Cw = sdix.CHUNK
+    ones = torch.ones(1, device="cuda")
+    checked = {"full": 0, "lanes": 0, "merge_topk": 0}
+    offs = np.cumsum([0] + [b_pad * nj * 3 for b_pad, _bo, nj, _nc, _r in specs])
+    widest = max(range(len(specs)), key=lambda i: (specs[i][3], not specs[i][4]))
+    for s in range(sdix.n_shards):
+        rec = sdix.rec[s]
+        scalars = torch.cat([sdix._field_avg[rec.device], ones])
+        for ci, (b_pad, b_out, nj, nc, rng) in enumerate(specs):
+            if (s or not every) and ci != widest:
+                continue
+            words = buf[s, 0, offs[ci] : offs[ci + 1]].reshape(b_pad, nj * 3)[:b_out]
+            jobs = torch.from_numpy(np.ascontiguousarray(words)).cuda()
+            kk = min(k, nc * Cw)
+            kb = sdix.key_bits[s]
+            name = f"3s {label} shard {s} class nc={nc} nj={nj} rows={b_out}"
+            if rng:
+                key, score = pdev.staged_lanes(
+                    scorer, rec, sdix._field_avg[rec.device], ones, jobs, sdix._aux_rec(scorer)[0][s],
+                    chunk=Cw, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=True,
+                )
+                res = check_merge(key, score, kk, f"{name} (range)", quiet=True, key_bits=kb)
+                errs["merge_topk"] = max(errs["merge_topk"], res[0])
+                checked["merge_topk"] += 1
+                continue
+            tables = pdev.expand_chunks(jobs.reshape(b_out, nj, 3), Cw, nc)
+            if nc * Cw <= pdev._FUSED_MAX_LANES:
+                err, ms, plain_ms = check_full(scorer, rec, tables, scalars, kk, name, kb)
+                errs["full"] = max(errs["full"], err)
+                checked["full"] += 1
+            else:
+                err, ms, plain_ms = check_lanes(scorer, rec, tables, scalars, kk, name, kb)
+                errs["lanes"] = max(errs["lanes"], err)
+                errs["merge_topk"] = max(errs["merge_topk"], err)
+                checked["lanes"] += 1
+                checked["merge_topk"] += 1
+            if s == 0 and ci < 3 or ci == widest:
+                log(f"{name}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"key_bits {kb}")
+    log(f"3s {label}: kernel against plain on {f'the {len(specs)} classes of shard 0 and ' if every else ''}"
+        f"the widest class of each shard: {checked} (K1 / K3 + K5 / K5) calls checked, all ok")
+    return checked
+
+
+def sharded_host_phases():
+    hist = pdev.metrics.snapshot()["histograms"]
+    return ", ".join(
+        f"{name.split('/')[1]} {hist[name]['mean_us'] / 1e3:.3f}"
+        for name in (f"sharded/{p}" for p in SHARDED_PHASES) if name in hist
+    )
+
+
+def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
+    """Phase 3s: the doc-sharded engine on 4 doc shards of one card (see the
+    module docstring).  Returns the launch counts of its served windows."""
+    k = 10
+    launches = dict.fromkeys(("full", "lanes", "merge_topk"), 0)
+
+    def tally():
+        for key in launches:
+            launches[key] += bm25_counts()[key]
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    mesh = make_mesh(1, 4, devices=["cuda:0"] * 4)
+    sdix = ShardedDeviceIndex(ix, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    mem = torch.cuda.memory_allocated() - mem0
+    single = dix.rec.untyped_storage().nbytes()
+    log(f"3s sharded snapshot on {mesh}: built in {build_s:.3f} s; {mem} B on the card "
+        f"({mem / 2**20:.1f} MiB; the single-device rec {single} B, {mem / single:.4f}x); "
+        f"local slots {sdix.local_slots}, key_bits per shard {sdix.key_bits}, rec per shard "
+        f"{[tuple(r.shape) for r in sdix.rec]}")
+    assert sdix.key_bits[0] <= dix._key_bits - 2
+    t = time.perf_counter()
+    for _ in range(2):  # warm-up: the plan pool and the trim's bounds
+        for w in windows:
+            sdix.query_batch_async(w, scorer, top_k=k).get_arrays()
+    torch.cuda.synchronize()
+    log(f"3s warm-up (2 passes): {time.perf_counter() - t:.1f} s")
+
+    turns = []
+    for turn, d in (("single-device eager", dix), ("sharded", sdix), ("sharded", sdix),
+                    ("single-device eager", dix)):
+        reset_bm25_counts()
+        dt, lat_ms, out = serve_pipelined(lambda i, d=d: d.query_batch_async(windows[i % 2], scorer, top_k=k))
+        counts = bm25_counts()
+        phases = sharded_host_phases() if d is sdix else ", ".join(
+            f"{p} {pdev.metrics.snapshot()['histograms'][f'query/{p}']['mean_us'] / 1e3:.3f}"
+            for p in HOST_PHASES if f"query/{p}" in pdev.metrics.snapshot()["histograms"])
+        log(f"3s {turn}: 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} ms/window, "
+            f"{8 * WINDOW / dt:.1f} QPS, window latency p50 {np.median(lat_ms):.1f} ms; host phases "
+            f"(mean ms): {phases}; launches {counts}")
+        if d is sdix:
+            assert counts["full"] > 0, counts
+            tally()
+        turns.append((turn, out))
+    for _turn, out in turns[1:3]:
+        for i, (_s, slots, keys) in enumerate(out):
+            assert slots.shape == (WINDOW, k) and keys.shape == (WINDOW, k)
+            np.testing.assert_array_equal(slots, turns[1][1][i % 2][1])
+    t = time.perf_counter()
+    for wi, w in enumerate(windows):
+        got = with_format(sdix, "f32").query_batch_async(w, scorer, top_k=k).get_arrays()
+        want = with_format(dix, "f32").query_batch_async(w, scorer, top_k=k).get_arrays()
+        sdix.config = dix.config = ix.config
+        err = assert_topk_agree(got[0], got[1], want[0], want[1])
+        np.testing.assert_array_equal(got[1], turns[1][1][wi][1])  # slots20 served = f32 slots
+        same = float((got[1] == want[1]).mean())
+        log(f"3s window {wi} (f32) against the single-device engine: agree by the testing rule, "
+            f"max abs err {err:.3g}, slots equal {100 * same:.4f}%; the served slots20 slots equal "
+            f"the f32 slots")
+    _s, slots, keys = turns[1][1][0]
+    recall = bm25_recall(ix, windows[0][:256], slots[:256], keys[:256], k)
+    log(f"3s recall@{k} of the sharded rows against the f64 oracle on 256 queries: {recall!r} "
+        f"({time.perf_counter() - t:.1f} s)")
+    assert recall >= 0.999, recall
+
+    # The head terms: classes past 16,384 lanes a shard (K3 + K5).
+    vocab, cdf = zipf
+    head = [vocab[i] for i in range(8)] + [f"{vocab[i]} {vocab[i + 8]}" for i in range(8)]
+    reset_bm25_counts()
+    t = time.perf_counter()
+    got = with_format(sdix, "f32").query_batch_async(head, scorer, top_k=k).get_arrays()
+    ms = 1e3 * (time.perf_counter() - t)
+    counts = bm25_counts()
+    tally()
+    want = with_format(dix, "f32").query_batch_async(head, scorer, top_k=k).get_arrays()
+    sdix.config = dix.config = ix.config
+    err = assert_topk_agree(got[0], got[1], want[0], want[1])
+    log(f"3s head-term window ({len(head)} queries of the 16 most frequent terms): {ms:.3f} ms "
+        f"submit to drained, launches {counts}; agrees with the single-device engine (max abs err "
+        f"{err:.3g})")
+    assert counts["lanes"] > 0 and counts["merge_topk"] > 0, counts
+
+    # 3r's range window.
+    w, rq = range_window(windows[0])
+    reset_bm25_counts()
+    ms = {}
+    for run in ("cold", "warm"):
+        t = time.perf_counter()
+        sdix.query_batch_async(w, scorer, top_k=k).get_arrays()
+        torch.cuda.synchronize()
+        ms[run] = 1e3 * (time.perf_counter() - t)
+    counts = bm25_counts()
+    tally()
+    planned, fallback = sdix.plan_batch(w, TOK, scorer)
+    range_host = sorted(set(fallback) & set(rq))
+    log(f"3s range window ({len(w)} queries, {len(rq)} with a range term): cold {ms['cold']:.3f} ms, "
+        f"warm {ms['warm']:.3f} ms submit to drained; host rows {len(fallback)} ({len(range_host)} of "
+        f"range queries); launches over cold + warm {counts}; {sharded_host_phases()}")
+    assert planned[4][rq].all() and not range_host and counts["merge_topk"] > 0, (range_host, counts)
+    sub = [w[i] for i in rq]
+    s_f, sl_f, k_f = with_format(sdix, "f32").query_batch_async(sub, scorer, top_k=k).get_arrays()
+    sdix.config = ix.config
+    hits = total = 0
+    rel = 0.0
+    for j, q in enumerate(sub):
+        want = RANGE_ROWS[q]
+        got = [(int(key), float(sc)) for key, sc, sl in zip(k_f[j], s_f[j], sl_f[j]) if sl >= 0]
+        assert len(got) == len(want), (q, len(got), len(want))
+        want_keys = {r.key for r in want}
+        hits += sum(key in want_keys for key, _sc in got)
+        total += len(want)
+        for (_key, sc), r in zip(got, want):
+            rel = max(rel, abs(sc - r.score) / max(abs(r.score), 1e-30))
+    recall = hits / max(total, 1)
+    log(f"3s recall@{k} of the {len(sub)} range queries against 3r's f64 vectorized host rows: "
+        f"{recall!r}, max score rel err {rel:.3g}")
+    assert recall >= 0.999 and rel <= RTOL + ATOL, (recall, rel)
+
+    # 3p's single mix, the trim on and off (one snapshot, a per-call toggle).
+    q = prune_mixes(vocab, cdf)["single"]
+    cfg = ix.config
+    try:
+        planned = sdix.plan_batch(q, TOK, scorer)[0]
+        before = shard_chunks(planned[1], sdix.CHUNK)
+        trimmed_plan, _specs, _buf = sharded_plan(sdix, q, scorer, k)
+        after = shard_chunks(trimmed_plan[1], sdix.CHUNK)
+        ms = {True: [], False: []}
+        out = {}
+        for on in (True, False, True, False, True, False):
+            cfg.prune_blocks = on
+            reset_bm25_counts()
+            w_ms, lat, arrays = serve_queued(sdix, q, scorer, k, n=2)
+            tally()
+            ms[on].append(w_ms)
+            if on in out:
+                np.testing.assert_array_equal(arrays[1], out[on][1])
+            out[on] = arrays
+        np.testing.assert_array_equal(out[True][1], out[False][1])
+        np.testing.assert_array_equal(out[True][2], out[False][2])
+    finally:
+        cfg.prune_blocks = True
+    log(f"3s single mix: chunks trimmed a window {before - after} of {before} over the 4 shards "
+        f"({100 * (before - after) / before:.2f}%); slots bit-equal on / off; ms/window on "
+        f"{', '.join(f'{v:.3f}' for v in ms[True])} (the first cold), off "
+        f"{', '.join(f'{v:.3f}' for v in ms[False])} (2 queued windows a turn, host clock)")
+    assert before >= after
+
+    for label, queries, every in (("window 0", windows[0], True), ("head-term window", head, True),
+                                  ("range window", w, False)):
+        check_sharded_classes(sdix, queries, scorer, k, errs, label, every)
+
+    reset_bm25_counts()
+    log("3s one sharded window, profiled:")
+    ev_s = profile_windows(lambda i: sdix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
+    log("3s one single-device eager window, profiled:")
+    ev_d = profile_windows(lambda i: dix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
+    log(f"3s device busy a window: sharded {sum(ms_ for _c, ms_ in ev_s.values()):.3f} ms, "
+        f"single-device {sum(ms_ for _c, ms_ in ev_d.values()):.3f} ms")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = make_mesh(1, n_cards)
+        sc = ShardedDeviceIndex(ix, cards)
+        got = with_format(sc, "f32").query_batch_async(windows[0], scorer, top_k=k).get_arrays()
+        want = with_format(sdix, "f32").query_batch_async(windows[0], scorer, top_k=k).get_arrays()
+        sdix.config = ix.config
+        err = assert_topk_agree(got[0], got[1], want[0], want[1])
+        log(f"3s a mesh over {n_cards} distinct cards {cards}: window 0 agrees with the one-card "
+            f"4-shard engine (max abs err {err:.3g})")
+    else:
+        log("3s a mesh over distinct cards: not run (1 card visible)")
+    log(f"3s launches over its served windows: {launches}")
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -1500,7 +1809,74 @@ def phase_z2o_main(card):
         f"(tie-aware {recall_tie!r}); max score rel err {rel:.3g}")
     assert recall_tie >= 0.999, recall_tie
     err, tot = check_z2o_window(dix, windows[0], k)
-    return counts, err, tot
+    return counts, err, tot, (ix, dix, windows)
+
+
+def phase_sharded_z2o(ix, dix, windows, card):
+    """Phase 4s: zero-to-one 50k on the doc-sharded engine, mesh (2, 2) on
+    one card (see the module docstring).  Returns (K4's launches, largest
+    error)."""
+    k = 10
+    t = time.perf_counter()
+    sz = ShardedDeviceIndex(ix, make_mesh(2, 2, devices=["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    log(f"4s sharded z2o snapshot on {sz.mesh}: {time.perf_counter() - t:.3f} s; local slots "
+        f"{sz.local_slots}, K4 key_bits per shard {sz.z2o_key_bits}")
+    with_format(sz, "slots")
+    for w in windows:  # warm-up: first launches
+        sz.query_batch_z2o(w, top_k=k).get_arrays()
+    reset_z2o_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    handles = [(time.perf_counter(), sz.query_batch_z2o(w, top_k=k)) for w in windows]
+    out, lat = [], []
+    for t_submit, h in handles:
+        out.append(h.get_arrays())
+        lat.append(1e3 * (time.perf_counter() - t_submit))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts = z2o_counts()
+    log(f"4s z2o 2 windows x {WINDOW} queries on {card}, mesh (2, 2): {1e3 * dt / 2:.3f} ms/window, "
+        f"latency {', '.join(f'{v:.1f}' for v in lat)} ms (queued, host clock); host phases (mean "
+        f"ms): {sharded_host_phases()}; launches {counts}")
+    assert counts["fused_z2o"] > 0 and counts["host_rows"] == 0, counts
+    for w, (_s, slots, _keys) in zip(windows, out):
+        want = pz.z2o_query_batch_async(dix, w, TOK, k, fmt="slots").get_arrays()
+        log(f"4s window slots equal to the single-device engine's: "
+            f"{100 * float((slots == want[1]).mean()):.4f}%")
+    sample = windows[0][:256]
+    scores, slots, keys = with_format(sz, "f32").query_batch_z2o(sample, top_k=k).get_arrays()
+    want = pz.z2o_query_batch_async(dix, sample, TOK, k, fmt="f32").get_arrays()
+    assert_topk_agree(scores, slots, want[0], want[1])
+    recall, recall_tie, rel = z2o_oracle_check(ix, sample, scores, slots, keys, k)
+    log(f"4s recall@{k} against the f64 oracle on {len(sample)} queries: {recall!r} (tie-aware "
+        f"{recall_tie!r}), max score rel err {rel:.3g}; agrees with the single-device engine")
+    assert recall_tie >= 0.999, recall_tie
+
+    # K4 against plain on every K4 class of shard 0 (data row 0).
+    jquery, words, qlen, max_chunks, njobs, _fb, _lock = sz.plan_batch_z2o(windows[0], TOK)
+    specs, _layout, buf, qcat = sz._pack_z2o(len(windows[0]), jquery, words, max_chunks, njobs, qlen)
+    err_max, n = 0.0, 0
+    off = qoff = 0
+    F, Cw = sz.num_fields, sz.CHUNK
+    for b_pad, b_out, nj, nc in specs:
+        w4 = buf[0, 0, off : off + b_pad * nj * 4].reshape(b_pad, nj, 4)[:b_out]
+        ql = torch.from_numpy(np.ascontiguousarray(qcat[0, qoff : qoff + b_out])).cuda()
+        off += b_pad * nj * 4
+        qoff += b_pad
+        if not pz.fused_route(nc, Cw, F, sz.local_slots < (1 << 26)):
+            continue
+        jobs = torch.from_numpy(np.ascontiguousarray(w4)).cuda()
+        c_start, c_skip, c_len, c_qterm, c_rank, c_score = pz.expand_chunks_z2o(jobs, Cw, nc)
+        args = (sz.rec[0], c_start, c_skip, c_len, c_qterm, c_score, c_rank, ql)
+        label = f"4s shard 0 z2o class nc={nc} nj={nj} rows={b_out}/{b_pad}"
+        err, ms, plain_ms, dev_ms = check_z2o(args, Cw, min(k, nc * Cw), F, label, sz.z2o_key_bits[0])
+        err_max = max(err_max, err)
+        n += 1
+        log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, key_bits {sz.z2o_key_bits[0]}")
+    assert n > 0
+    return counts["fused_z2o"], err_max
 
 
 def main():
@@ -1532,14 +1908,18 @@ def main():
     launches["merge_topk"] += phase_custom(ix, dix, windows[0][:256])
     launches["merge_topk"] += phase_ranges(ix, dix, windows[0], scorer, win_errs, times)
     phase_z2o_1m(ix, dix, windows[0])
+    shard_launches = phase_sharded(ix, dix, windows, zipf, scorer, card, errs)
+    for key in ("full", "lanes", "merge_topk"):
+        launches[key] += shard_launches[key]
     del dix
     prune_launches = phase_prune(ix, *zipf, card)
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += prune_launches[key]
     del ix
-    z2o_counts_, z2o_err, z2o_times = phase_z2o_main(card)
-    launches["fused_z2o"] = z2o_counts_["fused_z2o"]
-    win_errs["fused_z2o"] = z2o_err
+    z2o_counts_, z2o_err, z2o_times, z2o_run = phase_z2o_main(card)
+    sz_launches, sz_err = phase_sharded_z2o(*z2o_run, card)
+    launches["fused_z2o"] = z2o_counts_["fused_z2o"] + sz_launches
+    win_errs["fused_z2o"] = max(z2o_err, sz_err)
     times["fused_z2o"] = z2o_times
     launches["probe_add"] = probe_launches
     win_errs["probe_add"] = 0.0

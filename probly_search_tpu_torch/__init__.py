@@ -13,6 +13,7 @@ by either package into the other.  The device path is the port's own:
     ix.add_documents_columnar(keys, [texts])
     rows = ix.query_batch(queries, zero_to_one.new(), top_k=10)
     scores, slots, keys = ix.query_batch_async(queries, bm25.new()).get_arrays()
+    ix.attach_mesh(make_mesh(docs=4, devices=["cuda:0"] * 4))  # 4 doc shards
 
 This package imports torch and never JAX, nor anything of the JAX package.
 """
@@ -22,11 +23,14 @@ from .index.core import DocumentDetails, DocumentPointer, FieldDetails, Index, Q
 from .index.device import DeviceIndex, PendingBatch
 from .models import bm25, zero_to_one
 from .models.base import FieldData, ScoreCalculator, TermData
+from .parallel import ShardedDeviceIndex, make_mesh
 from .utils.tokenizers import whitespace_tokenizer
 
 __all__ = [
     "DeviceIndex",
     "PendingBatch",
+    "ShardedDeviceIndex",
+    "make_mesh",
     "Index",
     "IndexConfig",
     "HostFallbackError",

@@ -155,6 +155,10 @@ class Index:
         # Monotonic version for device-side cache invalidation.
         self._version = 0
         self._device_cache = None
+        # Doc-sharded serving: the attached mesh (attach_mesh) and the
+        # sharded snapshot over it (sharded_index).
+        self._mesh = None
+        self._sharded_cache = None
 
         # Host-side concurrency: a re-entrant lock guards every public
         # entry point.  The reference is single-threaded and only proves
@@ -510,17 +514,33 @@ class Index:
                 "device scorer protocol; use backend='exact'"
             )
         if backend in ("auto", "device") and (device_capable or device_two_phase):
+            # An attached mesh serves the batch through the doc-sharded
+            # engine (parallel/dist_query.py): one-phase scorers through its
+            # BM25 window, two-phase (zero-to-one) through its z2o window.
+            if self._mesh is not None and device_capable:
+                return self.sharded_index().query_batch(
+                    queries, score_calculator, tokenizer, fields_boost, top_k=k
+                )
+            if self._mesh is not None and device_two_phase:
+                return (
+                    self.sharded_index()
+                    .query_batch_z2o(queries, score_calculator, tokenizer, top_k=k)
+                    .get()
+                )
             try:
                 dix = self.device_index()
             except ValueError:
                 from ..utils.metrics import metrics
 
                 # Doc slots exceed the single-device merge-key capacity.
-                # The JAX engine auto-shards over several devices here;
-                # the port has no sharded engine yet.  With one device,
-                # degrade to the exact host path as the JAX engine does.
+                # With more than one CUDA device visible, shard over them
+                # (the capacity scales with the shard count); otherwise
+                # degrade to the exact host path.
                 if device_capable and _device_count(self.device) > 1:
-                    raise _sharding_not_ported("auto-sharding past the doc-slot capacity")
+                    metrics.inc("auto_sharded_batches")
+                    return self.sharded_index().query_batch(
+                        queries, score_calculator, tokenizer, fields_boost, top_k=k
+                    )
                 if backend == "device":
                     raise
                 metrics.inc("device_snapshot_fallbacks")
@@ -580,6 +600,14 @@ class Index:
             score_calculator, "device_needs_finalize", True
         )
         device_two_phase = getattr(score_calculator, "device_two_phase", False)
+        if self._mesh is not None and device_capable:
+            return self.sharded_index().query_batch_async(
+                queries, score_calculator, tokenizer, fields_boost, top_k=k
+            )
+        if self._mesh is not None and device_two_phase:
+            return self.sharded_index().query_batch_z2o(
+                queries, score_calculator, tokenizer, top_k=k
+            )
         if device_two_phase:
             from ..ops.z2o_device import z2o_query_batch_async
 
@@ -611,12 +639,33 @@ class Index:
         return self._device_cache
 
     def attach_mesh(self, mesh) -> None:
-        """Doc-sharded serving over a mesh: not ported yet."""
-        raise _sharding_not_ported("attach_mesh")
+        """Serve ``query_batch`` / ``query_batch_async`` through the
+        doc-sharded engine over ``mesh`` (``parallel.make_mesh``; several
+        cells may name one device, e.g. ``devices=["cuda:0"] * 4``).  Pass
+        ``None`` to detach and return to single-device serving."""
+        with self._lock:
+            self._mesh = mesh
+            self._sharded_cache = None
 
     def sharded_index(self, mesh=None):
-        """Doc-sharded device snapshot: not ported yet."""
-        raise _sharding_not_ported("sharded_index")
+        """Doc-sharded device snapshot over the attached (or given) mesh,
+        cached until the index mutates or the snapshot-shaping config
+        changes: the sharded mirror of :meth:`device_index`.  With no mesh
+        attached, builds ``make_mesh(data=1)`` over every visible CUDA
+        device and remembers it."""
+        from ..parallel.dist_query import ShardedDeviceIndex
+        from ..parallel.mesh import make_mesh
+
+        if mesh is None:
+            mesh = self._mesh
+        if mesh is None:
+            mesh = self._mesh = make_mesh(data=1)
+        self._flush_pending()
+        want_chunk = int(getattr(self.config, "chunk_size", 0) or ShardedDeviceIndex.CHUNK)
+        c = self._sharded_cache
+        if c is None or c.version != self._version or c.CHUNK != want_chunk or c.mesh is not mesh:
+            self._sharded_cache = ShardedDeviceIndex(self, mesh)
+        return self._sharded_cache
 
     def expand_term(self, term: str) -> List[str]:
         """All completions of ``term`` that carry at least one posting
@@ -705,12 +754,6 @@ class Index:
         return slots[order], tfs[order], occs[order]
 
 
-def _sharding_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: doc-sharded serving is not ported yet (ROADMAP Queue 1, M9)"
-    )
-
-
 def _device_count(device) -> int:
     """CUDA devices visible when ``device`` is a CUDA device, else 1."""
     import torch
@@ -742,6 +785,7 @@ for _name in (
     "query_batch",
     "query_batch_async",
     "device_index",
+    "sharded_index",
     "expand_term",
     "terms",
     "document_frequency",

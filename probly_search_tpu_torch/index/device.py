@@ -47,8 +47,10 @@ whose chunks provably cannot reach the top-k, before packing.  It changes
 job tables only; the surviving top-k rows are bit-equal to the unpruned
 window's.
 
-What the port does not do yet (each raises): light classes, per-class
-dispatch and sharding.
+What the port does not do yet (each raises): light classes and per-class
+dispatch.  Doc-sharded serving over several devices, or several shards of
+one card, is ``parallel/dist_query.py``, which runs this module's
+``_query_step`` per shard.
 """
 
 from __future__ import annotations
@@ -1639,16 +1641,20 @@ class DeviceIndex:
 
     @property
     def key_arr(self) -> np.ndarray:
-        """Doc slot -> user key: an int64 array when every key is a plain
-        int, otherwise an object array."""
+        """Doc slot -> user key (``key_array``), built once."""
         if self._key_arr is None or len(self._key_arr) != len(self.slot_to_key):
-            if self.slot_to_key and all(type(k) is int for k in self.slot_to_key):
-                self._key_arr = np.asarray(self.slot_to_key, dtype=np.int64)
-            else:
-                arr = np.empty(len(self.slot_to_key), dtype=object)
-                arr[:] = self.slot_to_key
-                self._key_arr = arr
+            self._key_arr = key_array(self.slot_to_key)
         return self._key_arr
+
+
+def key_array(slot_to_key) -> np.ndarray:
+    """Doc slot -> user key: an int64 array when every key is a plain int,
+    otherwise an object array."""
+    if slot_to_key and all(type(k) is int for k in slot_to_key):
+        return np.asarray(slot_to_key, dtype=np.int64)
+    arr = np.empty(len(slot_to_key), dtype=object)
+    arr[:] = slot_to_key
+    return arr
 
 
 class PendingBatch:

@@ -67,9 +67,17 @@ first chunk), so its chunks stay the stride-C chunks of the unpruned job:
 ``chunk_tables`` and the kernels' 16-B row loads take it exactly as they
 take an unpruned row.
 
-The sharded engine's trim-only variant (the JAX package's
-``prune_plan_sharded`` and its memoized form) lands with the port's sharded
-engine (ROADMAP M9).
+The sharded engine prunes too (``prune_plan_sharded``), with two
+sharding refinements to the same rule: tau(q) is the max over shards'
+achievable thresholds (a shard's k best docs for a job are k distinct docs
+of the GLOBAL corpus), and a chunk's "other terms" slack uses its OWN
+shard's UB(t') -- a doc's postings all live on one shard, so the
+shard-local bound is both valid and tighter.  The rebuild is TRIM-ONLY: a
+job loses provably-hopeless leading/trailing chunks but keeps interior
+ones, so job rows keep the cross-shard alignment the packed window layout
+requires (a fully-pruned job becomes zero-length, which the per-shard job
+tables already support as split-tail padding).  Bit for bit the JAX
+package's tables (tests/test_torch_sharding.py).
 
 Workload note (``chip_smoke.py`` phase 3p measures three mixes on the
 1M-doc bench corpus, whose docs all hold 8 tokens, so a posting's impact is
@@ -466,3 +474,256 @@ def prune_plan(dix, plan, pool, k: int, fields_boost) -> Any:
         has_range=plan.has_range,
         pool_rows=rows[rj],
     )
+
+
+# --------------------------------------------------------------------- #
+# the sharded engine's trim (parallel/dist_query.py)                     #
+# --------------------------------------------------------------------- #
+
+
+class _ShardBoundsView:
+    """One shard of a ShardedDeviceIndex presented as a
+    :func:`build_job_bounds` source: shard-local posting rows (the shard
+    CSR's row space -- ``_shard_rows[s]`` in global posting order keeps the
+    per-term doc-sorted CSR invariant), global doc stats."""
+
+    def __init__(self, sdix, s: int):
+        sel = sdix._shard_rows[s]
+        self._post_tf_all = sdix._post_tf_g[sel]
+        self._post_doc_all = sdix._post_doc_g[sel]
+        self._doc_len_snap = sdix._doc_len_snap
+        self._alive_snap = sdix._alive_snap
+        self._field_avg_host = sdix._field_avg_host
+        self.num_fields = sdix.num_fields
+
+
+def shard_bounds_view(sdix, s: int) -> _ShardBoundsView:
+    """Cached per-shard bounds view (its gather is O(P / n))."""
+    v = sdix._prune_views[s]
+    if v is None:
+        v = sdix._prune_views[s] = _ShardBoundsView(sdix, s)
+    return v
+
+
+def prune_plan_sharded_cached(sdix, planned, rows, qp, qids, k: int, fields_boost) -> Any:
+    """Per-query memoized :func:`prune_plan_sharded` (the sharded mirror of
+    :func:`prune_plan_cached`).
+
+    The sharded trim is TRIM-ONLY -- job count and order are invariant -- so
+    the cache stores, per (pooled query, k, boosts): status (unchanged /
+    trimmed) plus, for trimmed queries, the trimmed ``[n_shards, nj, 3]``
+    word rows and the new chunk total; repeats splice word rows in place of
+    the pool gather.  Change detection is a word comparison per job (the
+    per-query ``nchunks`` -- the MAX over shards -- can survive a trim on a
+    non-max shard, so it is NOT a valid change test here, unlike the
+    single-index rebuild).  Bit-equal to the direct pass."""
+    if planned is None or rows is None or qids is None:
+        return prune_plan_sharded(sdix, planned, rows, qp, k, fields_boost)
+    k_cap = int(sdix.config.prune_max_top_k)
+    if k > k_cap or k < 1:
+        return planned
+    boosts = np.asarray(fields_boost, dtype=np.float64)
+    if (boosts < 0).any() or len(boosts) != sdix.num_fields:
+        return planned
+
+    key = (k, tuple(boosts.tolist()))
+    n = sdix.n_shards
+    with sdix._plan_lock:
+        caches = qp.setdefault("prune_cache", {})
+        pc = caches.get(key)
+        npool = len(qp["njobs"])
+        if pc is None:
+            pc = caches[key] = {
+                "status": np.zeros(npool, dtype=np.int8),
+                "alt_map": np.full(npool, -1, dtype=np.int64),
+                "alt_off": np.zeros(0, dtype=np.int64),
+                "alt_njobs": np.zeros(0, dtype=np.int64),
+                "alt_nchunks": np.zeros(0, dtype=np.int64),
+                "alt_words": np.zeros((n, 0, 3), dtype=np.int32),
+            }
+        if len(pc["status"]) < npool:
+            grow = npool - len(pc["status"])
+            pc["status"] = np.concatenate([pc["status"], np.zeros(grow, np.int8)])
+            pc["alt_map"] = np.concatenate([pc["alt_map"], np.full(grow, -1, np.int64)])
+        status = pc["status"]
+
+        jq, words, nchunks, njobs, has_range = planned
+        B = len(njobs)
+        sq = np.where(njobs > 0, qids, -1)
+        st_q = np.where(sq >= 0, status[np.maximum(sq, 0)], np.int8(1))
+        unk_pos = np.flatnonzero(st_q == 0)
+        poff = np.zeros(B + 1, np.int64)
+        np.cumsum(njobs, out=poff[1:])
+        if len(unk_pos):
+            uq, first = np.unique(sq[unk_pos], return_index=True)
+            upos = unk_pos[first]
+            nj_u = njobs[upos]
+            rsel = np.repeat(poff[upos], nj_u) + _segment_arange(nj_u)
+            sub = (
+                np.repeat(np.arange(len(upos), dtype=np.int64), nj_u),
+                words[:, rsel],
+                nchunks[upos],
+                nj_u,
+                has_range[upos],
+            )
+            out = prune_plan_sharded(sdix, sub, rows[rsel], qp, k, fields_boost)
+            metrics.inc("prune/sharded_cache_fills", len(uq))
+            if out is sub:
+                status[uq] = 1
+            else:
+                ow = out[1]
+                chj = (ow != sub[1]).any(axis=(0, 2))  # [Jsub]
+                soff = np.zeros(len(uq) + 1, np.int64)
+                np.cumsum(nj_u, out=soff[1:])
+                changed_u = np.add.reduceat(chj.astype(np.int64), soff[:-1]) > 0
+                status[uq[~changed_u]] = 1
+                ch = np.flatnonzero(changed_u)
+                if len(ch):
+                    nj_c = nj_u[ch]
+                    csel = np.repeat(soff[ch], nj_c) + _segment_arange(nj_c)
+                    nb = len(pc["alt_njobs"])
+                    pc["alt_map"][uq[ch]] = nb + np.arange(len(ch))
+                    pc["alt_off"] = np.concatenate(
+                        [pc["alt_off"], pc["alt_words"].shape[1] + np.cumsum(nj_c) - nj_c]
+                    )
+                    pc["alt_njobs"] = np.concatenate([pc["alt_njobs"], nj_c])
+                    pc["alt_nchunks"] = np.concatenate([pc["alt_nchunks"], out[2][ch]])
+                    pc["alt_words"] = np.concatenate([pc["alt_words"], ow[:, csel]], axis=1)
+                    status[uq[ch]] = 2
+            st_q = np.where(sq >= 0, status[np.maximum(sq, 0)], np.int8(1))
+
+        use_alt = st_q == 2
+        if not use_alt.any():
+            return planned
+        a_idx = np.where(use_alt, pc["alt_map"][np.maximum(sq, 0)], 0)
+        nch2 = np.where(use_alt, pc["alt_nchunks"][a_idx], nchunks)
+        words2 = words.copy()
+        ch_pos = np.flatnonzero(use_alt)
+        nj_ch = njobs[ch_pos]
+        dsel = np.repeat(poff[ch_pos], nj_ch) + _segment_arange(nj_ch)
+        ssel = np.repeat(pc["alt_off"][a_idx[ch_pos]], nj_ch) + _segment_arange(nj_ch)
+        words2[:, dsel] = pc["alt_words"][:, ssel]
+        metrics.inc("prune/sharded_cache_splices", len(ch_pos))
+        return jq, words2, nch2, njobs, has_range
+
+
+def prune_plan_sharded(sdix, planned, rows, qp, k: int, fields_boost) -> Any:
+    """Trim-only sharded block-max pruning (module docstring, sharded
+    paragraph).  ``planned`` is the 5-tuple of
+    ``ShardedDeviceIndex.plan_batch``; ``rows`` its pool job rows; ``qp`` the
+    plan pool carrying ``prune_sh`` per-shard bounds.  Returns a (possibly)
+    trimmed 5-tuple; inputs are never mutated."""
+    from .device import _LEN_BITS, _MAX_JOB_LEN, _QT_BITS
+
+    k_cap = int(sdix.config.prune_max_top_k)
+    if planned is None or rows is None or k > k_cap or k < 1:
+        return planned
+    boosts = np.asarray(fields_boost, dtype=np.float64)
+    if (boosts < 0).any() or len(boosts) != sdix.num_fields:
+        return planned
+
+    jq, words, nchunks, njobs, has_range = planned
+    n, Jw = words.shape[0], words.shape[1]
+    B = len(njobs)
+    C = sdix.CHUNK
+    if Jw == 0:
+        return planned
+    # word1's qterm/range bits and word2's scale are shard-invariant (the
+    # planner broadcasts them); only start/len vary.
+    jqterm = (words[0, :, 1] >> _LEN_BITS) & ((1 << _QT_BITS) - 1)
+    is_rng = ((words[0, :, 1] >> 30) & 1) > 0
+    scale = words[0, :, 2].view(np.float32).astype(np.float64)
+    pbs = qp["prune_sh"]
+
+    # Per-shard weighted job bounds [n, Jw] (f64; margins are pooled).
+    with np.errstate(invalid="ignore"):
+        ubw = (
+            np.stack([(pbs[s]["ub"][rows].astype(np.float64) * boosts).sum(axis=1) for s in range(n)])
+            * scale
+        )
+        kth = np.stack([pbs[s]["topv"][rows, :, k - 1].astype(np.float64) for s in range(n)])
+        kthw = np.where(kth == -np.inf, -np.inf, kth * boosts)
+        tau_job = kthw.max(axis=2) * scale  # [n, Jw]
+
+    # (q, qterm) job runs are contiguous for non-range queries (range-
+    # carrying queries may interleave, but they are never prunable).
+    gkey = jq * (1 << _QT_BITS) + jqterm
+    heads = np.ones(Jw, dtype=bool)
+    heads[1:] = gkey[1:] != gkey[:-1]
+    hidx = np.flatnonzero(heads)
+    ub_t = np.maximum.reduceat(ubw, hidx, axis=1)  # [n, G]
+    tq = jq[hidx]
+    S_q = np.stack([np.bincount(tq, weights=ub_t[s], minlength=B) for s in range(n)])  # [n, B]
+    qheads = np.ones(Jw, dtype=bool)
+    qheads[1:] = jq[1:] != jq[:-1]
+    qh = np.flatnonzero(qheads)
+    tau_q = np.full(B, -np.inf)
+    tau_q[jq[qh]] = np.maximum.reduceat(tau_job.max(axis=0), qh)
+
+    prunable_q = (tau_q > 0) & np.isfinite(tau_q) & ~has_range
+    test_j = prunable_q[jq] & ~is_rng
+    if not test_j.any():
+        return planned
+    grp_sizes = np.diff(np.r_[hidx, Jw])
+    ub_t_job = np.repeat(ub_t, grp_sizes, axis=1)  # [n, Jw]
+    other = S_q[:, jq] - ub_t_job  # [n, Jw] -- shard-local slack
+
+    words2 = words
+    trimmed_total = 0
+    for s in range(n):
+        jstart_all = words[s, :, 0].astype(np.int64)
+        jlen_all = (words[s, :, 1] & _MAX_JOB_LEN).astype(np.int64)
+        njc_all = np.where(jlen_all > 0, (jstart_all % 128 + jlen_all + C - 1) // C, 0)
+        tj = np.flatnonzero(test_j & (njc_all > 0))
+        if not len(tj):
+            continue
+        # Job-level necessary condition via cub_min (see prune_plan).
+        with np.errstate(invalid="ignore"):
+            cminw = (pbs[s]["cub_min"][rows[tj]].astype(np.float64) * boosts).sum(axis=1)
+            maybe = cminw * scale[tj] + other[s, tj] < tau_q[jq[tj]]
+        tj = tj[maybe]
+        if not len(tj):
+            continue
+        ncj = njc_all[tj]
+        w = _segment_arange(ncj)
+        pj = np.repeat(tj, ncj)
+        crows = np.repeat(pbs[s]["cub_off"][rows[tj]], ncj) + w
+        cubw = (pbs[s]["cub"][crows].astype(np.float64) * boosts).sum(axis=1)
+        drop = cubw * scale[pj] + other[s, pj] < tau_q[jq[pj]]
+        if not drop.any():
+            continue
+        # Trim-only rebuild: first/last KEPT chunk per tested job.
+        off = np.zeros(len(tj), np.int64)
+        np.subtract(np.cumsum(ncj), ncj, out=off)
+        wk_min = np.minimum.reduceat(np.where(drop, 1 << 40, w), off)
+        wk_max = np.maximum.reduceat(np.where(drop, -1, w), off)
+        base = (jstart_all[tj] // 128) * 128
+        empty = wk_max < 0
+        new_start = np.where(wk_min == 0, jstart_all[tj], base + wk_min * C)
+        new_end = np.minimum(jstart_all[tj] + jlen_all[tj], base + (wk_max + 1) * C)
+        new_len = np.where(empty, 0, new_end - new_start)
+        new_start = np.where(empty, jstart_all[tj], new_start)
+        if not (new_len != jlen_all[tj]).any():
+            continue
+        if words2 is words:
+            words2 = words.copy()
+        words2[s, tj, 0] = new_start.astype(np.int32)
+        words2[s, tj, 1] = (
+            new_len
+            | (jqterm[tj].astype(np.int64) << _LEN_BITS)
+            | (is_rng[tj].astype(np.int64) << 30)
+        ).astype(np.int32)
+        trimmed_total += int((ncj - np.where(empty, 0, wk_max - wk_min + 1)).sum())
+    if words2 is words:
+        return planned
+    # Per-query chunk totals = max over shards (plan_batch's nchunks
+    # contract; the class bucketing keys on it).
+    nch_sh = np.zeros((n, B))
+    for s in range(n):
+        jl = (words2[s, :, 1] & _MAX_JOB_LEN).astype(np.int64)
+        js = words2[s, :, 0].astype(np.int64)
+        njc = np.where(jl > 0, (js % 128 + jl + C - 1) // C, 0)
+        nch_sh[s] = np.bincount(jq, weights=njc.astype(np.float64), minlength=B)
+    nch2 = nch_sh.max(axis=0).astype(np.int64)
+    metrics.inc("prune/sharded_trimmed_chunks", trimmed_total)
+    return jq, words2, nch2, njobs, has_range

@@ -490,3 +490,54 @@ def test_range_window_on_cuda_matches_cpu():
     cpu = pdev.DeviceIndex(ix, device="cpu")
     want = cpu.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
     assert_topk_agree(got[0], got[1], want[0], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,docs", [(1, 4), (2, 2)])
+def test_sharded_window_on_cuda_matches_single_device(data, docs):
+    """A doc-sharded window on ``cuda:0`` x 4 (every class kind: K1 classes,
+    a K3 + K5 class past 16,384 lanes, term-range classes, a fallback query,
+    ties across shards) against the single-device engine on the card, with
+    each shard's merge keys at its own width (shard 0's largest local slot
+    is a power of two); and a zero-to-one window (K4 and the lockstep
+    program) the same way."""
+    _cuda()
+    import random
+
+    from probly_search_tpu_torch import Index, IndexConfig, make_mesh
+    from probly_search_tpu_torch.ops import z2o_device as pz
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+
+    rng = random.Random(8)
+    vocab = ["".join(rng.choice("abcdef") for _ in range(rng.randint(1, 4))) for _ in range(120)]
+    n = 4 * 1024 + 1
+    texts = [
+        "tie" if i < 8 or i >= n - 8 else
+        f"p{(i // 4) % 150:03d} q{i % 400:04d} "
+        + " ".join(rng.choice(vocab) for _ in range(rng.randint(1, 6)))
+        for i in range(n)
+    ]
+    ix = Index(1, config=IndexConfig(chunk_size=128, range_min_expansions=200, max_query_terms=8))
+    ix.add_documents_columnar(list(range(n)), [texts])
+    for key in range(30, n, 101):
+        ix.remove_document(key)
+    window = [" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3))) for _ in range(200)]
+    window += ["p", "p01", "q", "q01 a", "tie", "a", "b", "", "zzz", " ".join(vocab[:9])]
+    sdix = ShardedDeviceIndex(ix, make_mesh(data, docs, devices=["cuda:0"] * 4))
+    assert sdix.key_bits[0] == sdix.key_bits[1] + 1
+    planned, fallback = sdix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
+    specs = sdix._pack_window(planned, len(window))[0]
+    assert fallback and any(rng for *_s, rng in specs) and max(s[3] for s in specs) * 128 > 16384
+    before = dict(fq.launches), dict(fm.launches)
+    got = sdix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    assert fq.launches["full"] > before[0]["full"] and fq.launches["lanes"] > before[0]["lanes"]
+    assert fm.launches["merge_topk"] > before[1]["merge_topk"]
+    want = pdev.DeviceIndex(ix, device="cuda").query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], want[0], want[1])
+    z2o_window = window[:100] + ["a a", "ab a b"]
+    before = fz.launches["fused_z2o"]
+    got = sdix.query_batch_z2o(z2o_window, top_k=10).get_arrays()
+    assert fz.launches["fused_z2o"] > before
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    want = pz.z2o_query_batch_async(dix, z2o_window, pdev.whitespace_tokenizer, 10, fmt="f32").get_arrays()
+    assert_topk_agree(got[0], got[1], want[0], want[1])

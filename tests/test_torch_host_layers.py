@@ -177,8 +177,21 @@ def test_entry_points_default_to_the_card():
     assert p.query_batch(queries[:2], pt.bm25.new())  # device="cpu" serves
 
 
-def test_sharding_raises_not_ported():
-    p = pt.Index(1, device="cpu")
-    for call in (lambda: p.attach_mesh(object()), p.sharded_index):
-        with pytest.raises(NotImplementedError, match="M9"):
-            call()
+def test_sharding_serves_on_a_cpu_mesh():
+    """``attach_mesh``, ``sharded_index`` and the routed ``query_batch`` /
+    ``query_batch_async`` serve on a CPU mesh of 2 x 4 cells, with the rows
+    of the single-device engine."""
+    p, queries = _build(pt.Index, 2, "columnar", True, False, device="cpu")
+    want = p.query_batch(queries, pt.bm25.new(), tokenizer, top_k=5)
+    mesh = pt.make_mesh(2, 4, devices=["cpu"] * 8)
+    p.attach_mesh(mesh)
+    sdix = p.sharded_index()
+    assert isinstance(sdix, pt.ShardedDeviceIndex) and sdix.mesh is mesh and sdix.n_shards == 4
+    got = p.query_batch(queries, pt.bm25.new(), tokenizer, top_k=5)
+    assert [[r.key for r in row] for row in got] == [[r.key for r in row] for row in want]
+    _s, slots, keys = p.query_batch_async(queries, pt.bm25.new(), tokenizer, top_k=5).get_arrays()
+    assert [[int(k) for k, sl in zip(kr, sr) if sl >= 0] for kr, sr in zip(keys, slots)] == [
+        [r.key for r in row] for row in want
+    ]
+    p.attach_mesh(None)
+    assert p._sharded_cache is None

@@ -3,9 +3,10 @@ package ``probly_search_tpu``.
 
 The test process itself imports JAX (conftest.py), so the proof runs in a
 fresh interpreter where ``import jax`` fails: it imports the port (the
-launch probe, the profiling utilities and the pruning module too), serves a
-50-document slice on the CPU with BM25 (block-max pruning on) and with
-zero-to-one, checks that
+launch probe, the profiling utilities, the pruning module and the sharded
+engine too), serves a 50-document slice on the CPU with BM25 (block-max
+pruning on; also on a mesh of 2 doc shards) and with zero-to-one, checks
+that
 DeviceIndex refuses a CUDA device that is not there, and ends with no module
 of the JAX package loaded.  A static check finds no import of the JAX
 package in the port or in ``chip_smoke.py``.
@@ -38,6 +39,10 @@ oracle = [r.key for r in ix.query("w3 common", pt.bm25.new(), pt.whitespace_toke
 assert [int(k) for k in keys[0]] == oracle, (keys[0], oracle)
 import probly_search_tpu_torch.index.prune  # noqa: F401  (block-max pruning, on by default)
 assert any(p.get("prune_enabled") for p in dix._plan_pools.values()), "no pruning bounds"
+from probly_search_tpu_torch.parallel import ShardedDeviceIndex, make_mesh
+sdix = ShardedDeviceIndex(ix, make_mesh(1, 2, devices=["cpu"] * 2))
+sh = sdix.query_batch_async(["w3 common", "w5", "nothing"], pt.bm25.new(), top_k=5).get_arrays()
+assert (sh[1] == slots).all() and (sh[2] == keys).all(), (sh, slots)
 z2o = ix.query_batch(["w3 common", "w5 w5"], pt.zero_to_one.new(), top_k=5)
 z2o_oracle = ix.query("w3 common", pt.zero_to_one.new(), pt.whitespace_tokenizer, [1.0])[:5]
 assert [r.key for r in z2o[0]] == [r.key for r in z2o_oracle] and z2o[1], z2o

@@ -205,8 +205,12 @@ def test_not_ported_options_raise(served):
     assert z2o[1].shape == (len(windows[0]), K) and (z2o[1] >= 0).any()
     # templates, prewarm and fetch_windows_jointly are served now
     # (tests/test_torch_templates.py holds them)
-    with pytest.raises(NotImplementedError, match="M9"):
-        Index(1, device="cpu").attach_mesh(object())  # the port refuses any mesh
+    # sharding is served now (tests/test_torch_sharding.py holds its results)
+    from probly_search_tpu_torch import ShardedDeviceIndex, make_mesh
+
+    sdix = ShardedDeviceIndex(p._index, make_mesh(1, 2, devices=["cpu"] * 2))
+    sharded = sdix.query_batch_async(windows[0], bm25.new(), fields_boost=BOOST, top_k=K)
+    np.testing.assert_array_equal(sharded.get_arrays()[1], _port(p, windows[0]).get_arrays()[1])
 
 
 def test_chunk_width_not_a_power_of_two(monkeypatch):
