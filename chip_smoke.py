@@ -75,6 +75,23 @@ Phases (any failure raises, so the exit code is not 0):
      recall@10 of the pruned rows against the f64 oracle on 256 queries;
      pruning must fire on single (on skewed the rare term's own bound
      exceeds every achievable threshold at this size: nothing can prune);
+  3l. the dispatch modes on that index (after 3p), flipped on its
+     DeviceIndex's config between turns: (a) light classes
+     (light_chunk_size 256) on and off, eager composed (templates off), in
+     alternating turns: classes and lanes by chunk width, ms a window and
+     p50 (medians of 3 turns of 4 queued windows), device busy of one
+     window (torch.profiler), K1's device time summed over the window's
+     classes on and off (one captured call a class, L2 cold), slots
+     bit-equal on and off, recall@10 of the light rows against the f64
+     oracle on 256 queries; (b) a light template frozen, saved (entries of
+     width 256), loaded into a fresh DeviceIndex and prewarmed: 8 pipelined
+     windows on its CUDA graph beside 3g's graph path in turns, slots equal
+     to (a)'s eager rows, 0 refreezes, replays counted; (c) per-class
+     dispatch and per-dispatch windows on phase 3's two windows beside the
+     composed eager window in turns (4 queued windows a turn: ms a window,
+     launches), f32 scores and
+     slots bit-equal; (d) K1 at chunk 256 against plain on every light class
+     of the first window (max error, CUDA-event and device times, bound);
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route, and the rows held against the f64 oracle on 64 queries;
   3s. the doc-sharded engine (parallel/) on that index: 4 doc shards on one
@@ -111,7 +128,8 @@ Phases (any failure raises, so the exit code is not 0):
      slots equal to the single-device engine's, tie-aware recall@10
      against the f64 oracle on 256 queries, and K4 held against plain on
      every K4 class of shard 0 at that shard's key_bits.
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (K1 a second time at
+chunk 256, its launches those of 3l's light windows); the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits
 with an error before printing any result.
 """
@@ -350,8 +368,8 @@ def bound(payload_lanes: int, rows_read: int, table_bytes: int, out_bytes: int, 
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_full(scorer, rec, tables, scalars, k, label, key_bits=31):
-    kw = dict(chunk=C, k=k, qterm_bits=QB, num_fields=1, key_bits=key_bits)
+def check_full(scorer, rec, tables, scalars, k, label, key_bits=31, chunk=C):
+    kw = dict(chunk=chunk, k=k, qterm_bits=QB, num_fields=1, key_bits=key_bits)
     ks, kd = fq.fused_query_topk(scorer, rec, *tables, scalars, **kw)
     ks2, kd2 = fq.fused_query_topk(scorer, rec, *tables, scalars, **kw)
     assert torch.equal(ks, ks2) and torch.equal(kd, kd2), f"{label}: repeat runs differ"
@@ -385,13 +403,13 @@ def check_lanes(scorer, rec, tables, scalars, k, label, key_bits=31):
     return err, ms, plain_ms
 
 
-def bm25_bound(tables, k, phase, F=1):
+def bm25_bound(tables, k, phase, F=1, chunk=C):
     """``bound`` of one K1 / K3 call on these tables: each payload lane
     reads 2 + 2F record rows and does 10F + 2 f32 operations."""
     c_start, c_len = tables[0], tables[2]
     B, NC = c_start.shape
     payload = int(c_len.sum())
-    out = B * k * 8 if phase == "full" else B * NC * C * 8
+    out = B * k * 8 if phase == "full" else B * NC * chunk * 8
     return bound(payload, 2 + 2 * F, B * NC * 20 + 16 * F, out, payload * (10 * F + 2))
 
 
@@ -726,7 +744,7 @@ def check_window_classes(dix, dispatches, scorer, k):
     times = {key: [0.0, 0.0, 0.0, "bytes"] for key in errs}
     scalars = torch.cat([dix.field_avg, torch.ones(1, device="cuda")])
     k1_dev = 0.0
-    for idxs, jobs_flat, nc, nj, _rng in dispatches:
+    for idxs, jobs_flat, nc, nj, _rng, _cw in dispatches:
         jobs = torch.from_numpy(jobs_flat).cuda().reshape(jobs_flat.shape[0], nj, 3)
         tables = pdev.expand_chunks(jobs, dix.CHUNK, nc)
         phase = "full" if nc * dix.CHUNK <= pdev._FUSED_MAX_LANES else "lanes"
@@ -827,7 +845,7 @@ def phase_main(scorer, card):
     log(f"warm-up (2 passes): {time.time() - t2:.1f} s")
 
     dispatches, specs = window_classes(dix, windows[0], scorer, k)
-    for _idxs, jobs_flat, nc, nj, _rng in dispatches:
+    for _idxs, jobs_flat, nc, nj, _rng, _cw in dispatches:
         phase = "full" if nc * dix.CHUNK <= pdev._FUSED_MAX_LANES else "lanes"
         log(f"class nc={nc:5d} nj={nj:4d} rows={jobs_flat.shape[0]:6d} phase={phase}")
 
@@ -885,6 +903,7 @@ def reset_bm25_counts():
     for counts in (fq.launches, fm.launches, fm.path_calls):
         for key in counts:
             counts[key] = 0
+    fq.chunk_launches.clear()
     pdev.metrics.reset()
 
 
@@ -980,7 +999,7 @@ def phase_graphs(ix, dix, windows, scorer, card):
     warm = cuda_ms(lambda: [g.graph.replay() for _ in range(10)]) / 10
     log(f"3g the window's CUDA graph replay: {cold:.4f} ms with the L2 cold, {warm:.4f} ms warm "
         "(10 replays back to back)")
-    step = gix._step(scorer, k, "slots20", tuple((c, c, nj, nc, False) for nc, nj, c in entries))
+    step = gix._step(scorer, k, "slots20", gix._template_specs(entries))
     nodes = kernels_per_call(lambda: step(g.words))
     for turn, x in (("eager", dix), ("graph", gix)):
         reset_bm25_counts()
@@ -1008,7 +1027,7 @@ def phase_graphs(ix, dix, windows, scorer, card):
                 np.testing.assert_array_equal(got[1], want[1])
     log(f"3g a pair of windows submitted and drained (prefetch on, graph path): jointly "
         f"{np.median(joint):.3f} ms, apart {np.median(apart):.3f} ms (medians of 5, host clock)")
-    return turns[1][2]
+    return turns[1][2], gix
 
 
 def phase_custom(ix, dix, sample):
@@ -1171,6 +1190,225 @@ def phase_prune(ix, vocab, cdf, card):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# phase 3l: the dispatch modes                                           #
+# --------------------------------------------------------------------- #
+
+LIGHT_CW = 256  # IndexConfig.light_chunk_size of phase 3l
+
+
+def composed_classes(dix, queries, scorer, k):
+    """The composed window's dispatches (templates off) under ``dix.config``,
+    in the layout ``query_batch_async`` gives them (``composed_class_specs``),
+    each with the rows it computes."""
+    plan, _fb = dix.plan_batch(queries, TOK, scorer)
+    plan = dix.prune(plan, scorer, k, [1.0] * dix.num_fields)
+    disp = dix.pack_dispatches(len(queries), plan)
+    specs = pdev.composed_class_specs(disp)
+    return [(d, spec[1]) for d, spec in zip(disp, specs)]
+
+
+def k1_classes(dix, classes, scorer, k, width=None, check=False):
+    """K1 on each full-phase class of ``classes`` (``composed_classes``; of
+    chunk width ``width`` only, if given) at the rows the window computes:
+    device time (one call captured in a CUDA graph, replayed with the L2
+    cold), bound, and with ``check`` also K1 against plain (max error,
+    CUDA-event and plain times).  Returns the sums and the largest error."""
+    scalars = torch.cat([dix.field_avg, torch.ones(1, device="cuda")])
+    tot = {"n": 0, "err": 0.0, "ms": 0.0, "plain_ms": 0.0, "dev_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes"}
+    for (_idxs, jobs_flat, nc, nj, _rng, cw), b_out in classes:
+        if nc * cw > pdev._FUSED_MAX_LANES or (width and cw != width):
+            continue
+        kk = min(k, nc * cw)
+        jobs = torch.from_numpy(jobs_flat[:b_out]).cuda().reshape(b_out, nj, 3)
+        tables = pdev.expand_chunks(jobs, cw, nc)
+        kw = dict(chunk=cw, k=kk, qterm_bits=QB, num_fields=1, key_bits=dix._key_bits)
+        dev_ms = graph_ms(lambda: fq.fused_query_topk(scorer, dix.rec, *tables, scalars, **kw))
+        bound_ms, tot["bound_by"] = bm25_bound(tables, kk, "full", chunk=cw)
+        line = f"3l K1 class cw={cw} nc={nc} nj={nj} rows={b_out}: device {dev_ms:.4f} ms"
+        if check:
+            err, ms, plain_ms = check_full(scorer, dix.rec, tables, scalars, kk, line,
+                                           dix._key_bits, chunk=cw)
+            tot["err"] = max(tot["err"], err)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            line += f", CUDA events {ms:.4f} ms, plain {plain_ms:.4f} ms, max_abs_err {err:.3g}"
+        log(f"{line}, bound {bound_ms:.4f} ms ({tot['bound_by']})")
+        tot["n"] += 1
+        tot["dev_ms"] += dev_ms
+        tot["bound_ms"] += bound_ms
+    return tot
+
+
+def class_census(classes):
+    """Per chunk width: (classes, real rows, lanes the window computes)."""
+    out = {}
+    for (idxs, _j, nc, _nj, _rng, cw), b_out in classes:
+        c = out.setdefault(cw, [0, 0, 0])
+        c[0] += 1
+        c[1] += len(idxs)
+        c[2] += b_out * nc * cw
+    return out
+
+
+def phase_light(ix, dix, gix, windows, scorer, card):
+    """Phase 3l: the dispatch modes on phase 3's index, options flipped on
+    ``dix.config`` between turns.  (a) light classes on and off, eager
+    composed (templates off), in alternating turns; (b) a light template
+    frozen, saved, loaded into a fresh DeviceIndex and prewarmed, served on
+    the graph path beside 3g's graph path (``gix``); (c) per-class dispatch
+    and per-dispatch windows beside the composed eager window; (d) K1
+    against plain on every light class of the first window.  Returns
+    (K1's launches at chunk 256 on (a) and (b), (d)'s record)."""
+    k = 10
+    base = ix.config  # phase 3's: templates, pruning, slots20
+    off = dataclasses.replace(base, template_compositions=False, light_chunk_size=0)
+    on = dataclasses.replace(off, light_chunk_size=LIGHT_CW)
+    q = windows[0]
+    light_launches = [0]
+
+    def count_light():
+        light_launches[0] += fq.chunk_launches.get(f"full@{LIGHT_CW}", 0)
+
+    # (a) light classes on against off
+    classes = {}
+    for name, cfg in (("off", off), ("on", on)):
+        dix.config = cfg
+        classes[name] = composed_classes(dix, q, scorer, k)
+        census = class_census(classes[name])
+        log(f"3l (a) light {name}: {len(classes[name])} classes; by chunk width (classes, rows, "
+            f"lanes computed): {census}; lanes a window {sum(c[2] for c in census.values())}")
+    assert LIGHT_CW in class_census(classes["on"]), "3l: no light class in the window"
+    ms = {True: [], False: []}
+    p50 = {True: [], False: []}
+    first = {}
+    for turn in range(4):  # the first pair warms up
+        for light in (True, False):
+            dix.config = on if light else off
+            reset_bm25_counts()
+            w_ms, lat, arrays = serve_queued(dix, q, scorer, k)
+            if light:
+                count_light()
+            first.setdefault(light, arrays)
+            np.testing.assert_array_equal(arrays[1], first[True][1],
+                                          err_msg="3l (a): light on and off rows differ")
+            if turn:
+                ms[light].append(w_ms)
+                p50[light].append(float(np.median(lat)))
+    for light in (True, False):
+        log(f"3l (a) light {'on' if light else 'off'}: {np.median(ms[light]):.3f} ms/window (turns "
+            f"{', '.join(f'{v:.3f}' for v in ms[light])}), p50 {np.median(p50[light]):.1f} ms (3 turns "
+            f"of 4 queued windows, host clock, {card}); slots bit-equal on / off")
+    for light in (True, False):
+        dix.config = on if light else off
+        log(f"3l (a) light {'on' if light else 'off'}, profiled:")
+        reset_bm25_counts()
+        profile_windows(lambda i: dix.query_batch_async(q, scorer, top_k=k), n=2)
+        if light:
+            count_light()
+    k1 = {}
+    for name in ("off", "on"):
+        dix.config = on if name == "on" else off
+        k1[name] = k1_classes(dix, classes[name], scorer, k)
+    log(f"3l (a) K1 over the window's K1 classes, device (each class one call captured in a CUDA "
+        f"graph, replayed with the L2 cold): light on {k1['on']['dev_ms']:.4f} ms in {k1['on']['n']} "
+        f"classes, off {k1['off']['dev_ms']:.4f} ms in {k1['off']['n']}; bound on "
+        f"{k1['on']['bound_ms']:.4f}, off {k1['off']['bound_ms']:.4f} ms")
+    dix.config = on
+    _s, slots, keys = dix.query_batch_async(q[:256], scorer, top_k=k).get_arrays()
+    recall = bm25_recall(ix, q[:256], slots, keys, k)
+    log(f"3l (a) recall@{k} of the light rows against the f64 oracle on 256 queries: {recall!r}")
+    assert recall >= 0.999, recall
+
+    # (b) a light template on the graph path
+    light_tpl = dataclasses.replace(base, light_chunk_size=LIGHT_CW)
+    dix.config = light_tpl
+    dix._comp_templates.clear()
+    for _ in range(2):
+        for w in windows:
+            dix.query_batch_async(w, scorer, top_k=k).get_arrays()
+    path = os.path.join(ROOT, "build", "templates", "light.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    assert dix.save_templates(path) == 1
+    with open(path) as f:
+        (entries,) = json.load(f).values()
+    widths = sorted({e[3] for e in entries})
+    log(f"3l (b) light template: {len(entries)} entries, widths {widths}, "
+        f"{sum(e[2] for e in entries)} rows: {entries}")
+    assert LIGHT_CW in widths, "3l (b): the manifest holds no light entry"
+    lgx = DeviceIndex(ix, device="cuda")
+    lgx.config = light_tpl
+    assert lgx.load_templates(path) == 1
+    pdev.metrics.reset()
+    t = time.perf_counter()
+    assert lgx.prewarm(scorer) == 1
+    torch.cuda.synchronize()
+    log(f"3l (b) load + prewarm: {time.perf_counter() - t:.3f} s, {len(lgx._graphs)} CUDA graph(s)")
+    for _ in range(2):  # warm-up: the new index's plan pools
+        for w in windows:
+            lgx.query_batch_async(w, scorer, top_k=k).get_arrays()
+    turns = []
+    for name, x in (("light graph", lgx), ("3g graph", gix), ("3g graph", gix), ("light graph", lgx)):
+        reset_bm25_counts()
+        dt, lat_ms, out = serve_pipelined(lambda i, x=x: x.query_batch_async(windows[i % 2], scorer, top_k=k))
+        if x is lgx:
+            count_light()
+        ctr = pdev.metrics.snapshot()["counters"]
+        replays = int(ctr.get("template_graph_replays", 0))
+        log(f"3l (b) {name}: 8 windows x {WINDOW} queries: {1e3 * dt / 8:.3f} ms/window, p50 "
+            f"{np.median(lat_ms):.1f} ms; {replays} replays, "
+            f"{int(ctr.get('template_refreezes', 0))} refreezes; launches {bm25_counts()}, by chunk "
+            f"{dict(fq.chunk_launches)}")
+        assert replays == 8 and not ctr.get("template_refreezes"), ctr
+        turns.append(out)
+    for out in turns:
+        np.testing.assert_array_equal(out[0][1], first[True][1],
+                                      err_msg="3l (b): graph rows differ from (a)'s eager rows")
+    log("3l (b) the light graph path's slots equal (a)'s eager rows (and 3g's graph path's)")
+
+    # (c) per-class dispatch and per-dispatch windows against the composed window
+    f32 = dataclasses.replace(off, result_format="f32")
+    modes = {
+        "composed": f32,
+        "per_class": dataclasses.replace(f32, per_class_dispatch=True),
+        "per_dispatch": dataclasses.replace(f32, single_dispatch_windows=False),
+    }
+    want, times_ = None, {m: [] for m in modes}
+    for name in ("composed", "per_class", "per_dispatch", "per_dispatch", "per_class", "composed"):
+        dix.config = modes[name]
+        reset_bm25_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        handles = [dix.query_batch_async(w, scorer, top_k=k) for w in windows + windows]
+        t_sub = time.perf_counter() - t
+        arrays = [h.get_arrays() for h in handles]
+        times_[name].append(1e3 * (time.perf_counter() - t) / 4)
+        hist = pdev.metrics.snapshot()["histograms"]
+        log(f"3l (c) {name}: {times_[name][-1]:.3f} ms/window (4 windows submitted, then drained; "
+            f"submit {1e3 * t_sub / 4:.3f} ms/window); host phases (mean ms): " + ", ".join(
+                f"{p} {hist[f'query/{p}']['mean_us'] / 1e3:.3f}" for p in HOST_PHASES
+                if f"query/{p}" in hist) + f"; launches {bm25_counts()}")
+        want = want or arrays
+        for got, ref in zip(arrays, want):
+            np.testing.assert_array_equal(got[0], ref[0], err_msg=f"3l (c) {name}: scores differ")
+            np.testing.assert_array_equal(got[1], ref[1], err_msg=f"3l (c) {name}: slots differ")
+    log("3l (c) per-class and per-dispatch windows: f32 scores and slots bit-equal to the composed "
+        "window; ms/window " + ", ".join(f"{m} {', '.join(f'{v:.3f}' for v in t)}"
+                                         for m, t in times_.items()))
+
+    # (d) K1 against plain on every light class of the first window
+    dix.config = on
+    d = k1_classes(dix, classes["on"], scorer, k, width=LIGHT_CW, check=True)
+    log(f"3l (d) K1 at chunk {LIGHT_CW} on the first window's {d['n']} light classes: max_abs_err "
+        f"{d['err']:.3g}, CUDA events {d['ms']:.4f} ms, device {d['dev_ms']:.4f} ms, plain "
+        f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms ({d['bound_by']}); K1 launches at chunk "
+        f"{LIGHT_CW} on (a) and (b): {light_launches[0]}")
+    dix.config = base
+    assert light_launches[0] > 0 and d["n"] > 0
+    return light_launches[0], d
+
+
 def range_window(window):
     """Phase 3's window with every 64th query's first term cut to its first
     four characters (t01234 -> t012: 100 expansions, past the default
@@ -1227,7 +1465,7 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     counts = {**fq.launches, **fm.launches}
     ctr = pdev.metrics.snapshot()["counters"]
     routes = {}
-    for idxs, _jobs, nc, _nj, rng in packed[-1]:
+    for idxs, _jobs, nc, _nj, rng, _cw in packed[-1]:
         route = "range+K5" if rng else "K1" if nc * dix.CHUNK <= pdev._FUSED_MAX_LANES else "K3+K5"
         r = routes.setdefault(route, [0, 0])
         r[0] += 1
@@ -1299,7 +1537,7 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     ones = torch.ones(1, device="cuda")
     n = 0
     k5 = [0.0, 0.0, 0.0, 0.0]
-    for _idxs, jobs_flat, nc, _nj, rng in packed[-1]:
+    for _idxs, jobs_flat, nc, _nj, rng, _cw in packed[-1]:
         if not rng:
             continue
         key, score = pdev.staged_lanes(
@@ -1315,7 +1553,7 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
         f"{k5[1]:.4f} ms, plain {k5[2]:.4f} ms, bound {k5[3]:.4f} ms (bytes)")
     for q in ("t0", "t00", "t1"):
         plan_q, _fb = dix.plan_batch([q], TOK, scorer)
-        (_i, jobs_flat, nc, _nj, rng), = dix.pack_dispatches(1, plan_q)
+        (_i, jobs_flat, nc, _nj, rng, _cw), = dix.pack_dispatches(1, plan_q)
         key, score = pdev.staged_lanes(
             scorer, dix.rec, dix.field_avg, ones, torch.from_numpy(jobs_flat).cuda(), aux,
             chunk=dix.CHUNK, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=rng,
@@ -1902,7 +2140,7 @@ def main():
     errs["probe_add"] = 0.0  # bit-equal, asserted
     launches, win_errs, times, ix, dix, windows, zipf = phase_main(scorer, card)
     log(f"K5 launches on the main path: {launches['merge_topk']}")
-    graph_launches = phase_graphs(ix, dix, windows, scorer, card)
+    graph_launches, gix = phase_graphs(ix, dix, windows, scorer, card)
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += graph_launches[key]
     launches["merge_topk"] += phase_custom(ix, dix, windows[0][:256])
@@ -1911,11 +2149,11 @@ def main():
     shard_launches = phase_sharded(ix, dix, windows, zipf, scorer, card, errs)
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += shard_launches[key]
-    del dix
     prune_launches = phase_prune(ix, *zipf, card)
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += prune_launches[key]
-    del ix
+    light_launches, light = phase_light(ix, dix, gix, windows, scorer, card)
+    del dix, gix, ix
     z2o_counts_, z2o_err, z2o_times, z2o_run = phase_z2o_main(card)
     sz_launches, sz_err = phase_sharded_z2o(*z2o_run, card)
     launches["fused_z2o"] = z2o_counts_["fused_z2o"] + sz_launches
@@ -1942,6 +2180,20 @@ def main():
             # reduce + top-k; the probe's is x + 1
             "library_ms": probe_library_ms if key == "probe_add" else None,
         })
+    name, source, replaces = KERNELS["full"]
+    record.append({
+        "name": f"{name} (chunk {LIGHT_CW}: light classes)",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": light_launches,
+        "max_abs_err": light["err"],
+        "ms": light["ms"],
+        "plain_ms": light["plain_ms"],
+        "bound_ms": light["bound_ms"],
+        "bound_by": light["bound_by"],
+        "library_ms": None,
+    })
     assert "jax" not in sys.modules, "the port must not import jax"
     jax_pkg = [m for m in sys.modules if m == "probly_search_tpu" or m.startswith("probly_search_tpu.")]
     assert not jax_pkg, f"the port must not import the JAX package: {jax_pkg}"

@@ -134,8 +134,8 @@ def _bulk_ingest(index, keys, field_texts, tokenizer, is_last) -> None:
 
     # --- native one-shot CSR fast path (any F, any tokenizer) -------------
     # tokenize + intern + tf counting + CSR pack all in one C++ pass
-    # (O(tokens + postings)); the numpy pair machinery below costs several
-    # 8M-element packed sorts per 1M docs (PERFORMANCE.md r4).  Default
+    # (O(tokens + postings)); the numpy pair machinery below runs several
+    # packed sorts over every (doc, term) pair instead.  Default
     # tokenizer + single-value cells tokenize natively; custom tokenizers
     # and multi-value cells tokenize in Python (the fn-pointer extension
     # point, lib.rs:14) and feed the pre-tokenized intern+pack pass.

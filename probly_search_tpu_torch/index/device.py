@@ -47,10 +47,18 @@ whose chunks provably cannot reach the top-k, before packing.  It changes
 job tables only; the surviving top-k rows are bit-equal to the unpruned
 window's.
 
-What the port does not do yet (each raises): light classes and per-class
-dispatch.  Doc-sharded serving over several devices, or several shards of
-one card, is ``parallel/dist_query.py``, which runs this module's
-``_query_step`` per shard.
+Dispatch modes (``IndexConfig``), as in the JAX engine:
+  light classes (``light_chunk_size``): a query whose bucketed lane count
+      shrinks at that smaller power-of-two width is classed there; its class
+      runs the same kernels at that chunk width (``_light_classes``)
+  per-class dispatch (``per_class_dispatch``): each class's step runs on its
+      slice of the one uploaded buffer, then one pack step (``_pack_window``)
+  per-dispatch windows (``single_dispatch_windows=False``): one step per
+      dispatch, each part's f32 scores and slots drained apart
+      (``PendingBatch`` parts)
+Doc-sharded serving over several devices, or several shards of one card, is
+``parallel/dist_query.py``, which runs this module's ``_query_step`` per
+shard.
 """
 
 from __future__ import annotations
@@ -253,37 +261,79 @@ def staged_lanes(
     return key.to(torch.int32).reshape(B, NC * C), score.reshape(B, NC * C)
 
 
-def _window_step(
+def _class_outputs(
     scorer, rec, field_avg, fields_boost, words_flat, aux=None,
-    *, chunk: int, k: int, qterm_bits: int, num_fields: int, class_specs, fmt: str = "f32",
-    key_bits: int = KEY_BITS,
+    *, k: int, qterm_bits: int, num_fields: int, class_specs, key_bits: int = KEY_BITS,
 ):
-    """Run every shape class of a window and pack the results.
+    """Run every shape class of a window: [(scores f32[rows, kk], slots
+    int32[rows, kk]), ...], kk = min(k, the class's lanes).
 
     ``words_flat`` int32[total] holds every class's [b_pad, NJ * 3] job
-    table back to back; ``class_specs`` = ((b_pad, b_out, nj, nc, rng), ...),
-    ``rng`` marking a term-range class (``aux`` goes to those only).  Only
-    the first ``b_out`` rows of a class are computed (rows are independent;
-    the rest are padding).  ``key_bits`` bounds the live merge keys (see
-    ``merge_scores_topk_fused``).  Returns the packed rows of every class,
-    concatenated (see ``pack_result_rows``)."""
+    table back to back; ``class_specs`` = ((b_pad, b_out, nj, nc, rng, cw),
+    ...), ``rng`` marking a term-range class (``aux`` goes to those only)
+    and ``cw`` the class's chunk width (a light class's is narrower than
+    the index's).  Only the first ``b_out`` rows of a class are computed
+    (rows are independent; the rest are padding).  ``key_bits`` bounds the
+    live merge keys (see ``merge_scores_topk_fused``)."""
     outs = []
     off = 0
-    for b_pad, b_out, nj, nc, rng in class_specs:
+    for b_pad, b_out, nj, nc, rng, cw in class_specs:
         n = b_pad * nj * 3
-        jobs_flat = words_flat[off : off + n].reshape(b_pad, nj * 3)[:b_out]
+        jobs_flat = words_flat[off : off + n].reshape(b_pad, nj * 3)
         off += n
-        kk = min(k, nc * chunk)
-        s, d = _query_step(
-            scorer, rec, field_avg, fields_boost, jobs_flat, aux if rng else None,
-            chunk=chunk, k=kk, qterm_bits=qterm_bits, num_fields=num_fields, num_chunks=nc,
-            use_ranges=rng, key_bits=key_bits,
-        )
-        if kk < k:
-            s = torch.nn.functional.pad(s, (0, k - kk), value=float("-inf"))
-            d = torch.nn.functional.pad(d, (0, k - kk), value=-1)
-        outs.append(pack_result_rows(s, d, fmt))
-    return torch.cat(outs, dim=0)
+        outs.append(_query_step(
+            scorer, rec, field_avg, fields_boost, jobs_flat[:b_out],
+            aux if rng else None, chunk=cw, k=min(k, nc * cw), qterm_bits=qterm_bits,
+            num_fields=num_fields, num_chunks=nc, use_ranges=rng, key_bits=key_bits,
+        ))
+    return outs
+
+
+def _window_step(
+    scorer, rec, field_avg, fields_boost, words_flat, aux=None,
+    *, k: int, qterm_bits: int, num_fields: int, class_specs, fmt: str = "f32",
+    key_bits: int = KEY_BITS,
+):
+    """Run every shape class of a window (``_class_outputs``) and pack the
+    results: the packed rows of every class, concatenated (see
+    ``_pack_window``)."""
+    outs = _class_outputs(
+        scorer, rec, field_avg, fields_boost, words_flat, aux, k=k, qterm_bits=qterm_bits,
+        num_fields=num_fields, class_specs=class_specs, key_bits=key_bits,
+    )
+    return _pack_window(outs, [spec[1] for spec in class_specs], k, fmt)
+
+
+def composed_class_specs(dispatches):
+    """The class layout of a window that takes no template: sorts
+    ``dispatches`` (``pack_dispatches`` 6-tuples) in place, stably by (nc,
+    nj, rows), and returns their ``class_specs``, each class computing its
+    real query count rounded up to 256 rows."""
+    dispatches.sort(key=lambda d: (d[2], d[3], d[1].shape[0]))
+    return tuple(
+        (d[1].shape[0], min(d[1].shape[0], -(-len(d[0]) // 256) * 256), d[3], d[2], d[4], d[5])
+        for d in dispatches
+    )
+
+
+def _pad_k(s, d, k: int):
+    """Pad a class's top-kk rows (kk = min(k, its lanes)) to k columns with
+    the missing entry (-inf, -1)."""
+    kk = s.shape[1]
+    if kk < k:
+        s = torch.nn.functional.pad(s, (0, k - kk), value=float("-inf"))
+        d = torch.nn.functional.pad(d, (0, k - kk), value=-1)
+    return s, d
+
+
+def _pack_window(outs, b_outs, k: int, fmt: str):
+    """The window's packed rows from per-class top-k outputs [(s, d), ...]:
+    each class trimmed to its first ``b_out`` rows, padded to k, packed and
+    concatenated (the JAX engine's ``_pack_window_impl``)."""
+    return torch.cat(
+        [pack_result_rows(*_pad_k(s[:b], d[:b], k), fmt) for (s, d), b in zip(outs, b_outs)],
+        dim=0,
+    )
 
 
 def pack_result_rows(s, d, fmt: str):
@@ -407,10 +457,6 @@ class PlannedJobs:
     qp: Optional[dict] = None
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
-
-
 def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
     """Drain several windows' packed rows in one device-to-host copy.
 
@@ -437,7 +483,7 @@ def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
 # The kernel launch counters a BM25 window step can move (plain int dicts of
 # the wrappers).  Capturing a step into a CUDA graph moves them though
 # nothing ran; ``WindowGraph`` takes that back out and adds it on replays.
-_LAUNCH_COUNTERS = (_fq.launches, _fm.launches, _fm.path_calls)
+_LAUNCH_COUNTERS = (_fq.launches, _fq.chunk_launches, _fm.launches, _fm.path_calls)
 
 
 class WindowGraph:
@@ -461,9 +507,9 @@ class WindowGraph:
         self._delta = []
         for counts, was in zip(_LAUNCH_COUNTERS, before):
             for key, n in counts.items():
-                if n != was[key]:
-                    self._delta.append((counts, key, n - was[key]))
-                    counts[key] = was[key]
+                if n != was.get(key, 0):
+                    self._delta.append((counts, key, n - was.get(key, 0)))
+                    counts[key] = was.get(key, 0)
         self._lock = threading.Lock()
         metrics.inc("template_graph_captures", 1)
 
@@ -477,7 +523,7 @@ class WindowGraph:
             self.graph.replay()
             packed = self.packed.clone()
         for counts, key, n in self._delta:
-            counts[key] += n
+            counts[key] = counts.get(key, 0) + n
         metrics.inc("template_graph_replays", 1)
         return packed
 
@@ -522,8 +568,6 @@ class DeviceIndex:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"DeviceIndex runs on cuda or cpu, not {self.device}")
-        if index.config.light_chunk_size:
-            raise _not_ported("light_chunk_size (light classes)", "per-class dispatch")
         index._flush_pending()
         self.version = index.version
         self._index = index
@@ -1129,15 +1173,25 @@ class DeviceIndex:
     def pack_dispatches(self, n_queries: int, plan: PlannedJobs):
         """Bucket queries into shape classes and pack their job tables.
 
-        Returns [(query_indices, jobs_flat int32[B_pad, NJ*3], NC, NJ, rng),
-        ...]; each dispatch holds at most LANES_PER_DISPATCH lanes.  Queries
-        that carry a term-range job form classes of their own (``rng``; class
-        id bit 0), of at most 2 rows padded to the real row count: their
-        staged gather holds [B, NC, C] record and aux lanes at once."""
+        Returns [(query_indices, jobs_flat int32[B_pad, NJ*3], NC, NJ, rng,
+        cw), ...]; each dispatch holds at most LANES_PER_DISPATCH lanes.
+        The class id is ``nc * 4 + light * 2 + rng``: queries that carry a
+        term-range job form classes of their own (``rng``), of at most 2
+        rows padded to the real row count (their staged gather holds [B,
+        NC, C] record and aux lanes at once); light queries
+        (``_light_classes``) form classes at the light chunk width ``cw``,
+        every other class runs at the index's width."""
         C = self.CHUNK
         nc_bucket = _bucket_vec(plan.nchunks, self.nc_buckets, self.nc_min)
+        small, nc_small = self._light_classes(n_queries, plan, nc_bucket)
         alive = plan.njobs > 0
-        class_of_q = np.where(alive, nc_bucket * 2 + plan.has_range.astype(np.int64), -1)
+        class_of_q = np.where(
+            alive,
+            np.where(small, nc_small, nc_bucket) * 4
+            + small.astype(np.int64) * 2
+            + plan.has_range.astype(np.int64),
+            -1,
+        )
         order = np.argsort(class_of_q, kind="stable")
         sorted_cls = class_of_q[order]
         jpos = self._job_rows(plan, n_queries)
@@ -1145,13 +1199,14 @@ class DeviceIndex:
         out = []
         for cls in np.unique(class_of_q[alive]) if alive.any() else []:
             cls = int(cls)
-            nc, rng = cls // 2, bool(cls & 1)
+            nc, rng = cls // 4, bool(cls & 1)
+            cw = self._light_width() if cls & 2 else C
             members = order[sorted_cls == cls]
             nj = _bucket(int(plan.njobs[members].max()), self.NJ_BUCKETS, 4)
-            b_cap = max(1, int(self.LANES_PER_DISPATCH // (nc * C)))
+            b_cap = max(1, int(self.LANES_PER_DISPATCH // (nc * cw)))
             # Range classes and huge classes (usually single queries) pad to
             # their real row count, not to 8 rows.
-            min_pad = 1 if (rng or nc * C > (1 << 21)) else 8
+            min_pad = 1 if (rng or nc * cw > (1 << 21)) else 8
             if rng:
                 b_cap = min(b_cap, 2)
             if rng or not self.config.pow2_row_split:
@@ -1168,26 +1223,72 @@ class DeviceIndex:
             for B, B_pad in spans:
                 idxs = members[s : s + B]
                 s += B
-                out.append((idxs, self._fill_jobs(plan, jpos, idxs, B_pad, nj), nc, nj, rng))
+                out.append((idxs, self._fill_jobs(plan, jpos, idxs, B_pad, nj), nc, nj, rng, cw))
         return out
+
+    # Chunk-count buckets of light classes: coarse, so that a few light
+    # classes take the queries of several classes at the index's width.
+    _LIGHT_NC_BUCKETS = (4, 8, 12)
+
+    def _light_width(self) -> int:
+        """The light classes' chunk width, read from the config on every
+        call (0: off).  Only a power of two, a multiple of 128 and below the
+        index's width is valid (chunks stay 128-aligned doc-sorted runs);
+        any other value turns light classes off."""
+        cw = int(self.config.light_chunk_size or 0)
+        if cw <= 0 or cw >= self.CHUNK or (cw & (cw - 1)) or cw % 128:
+            return 0
+        return cw
+
+    def _light_classes(self, n_queries: int, plan: PlannedJobs, nc_bucket):
+        """Per query: (small bool[B], nc_small int64[B]).  A query goes light
+        iff it carries no term-range job, needs at most 12 chunks at the
+        light width, and its bucketed lane count there is strictly below its
+        bucketed lane count at the index's width; the chunk counts come from
+        the (possibly pruned) job words, as the device decomposes them.
+        ``nc_small`` is its chunk-count bucket at the light width (only
+        meaningful where ``small``)."""
+        cw = self._light_width()
+        if not cw:
+            return np.zeros(n_queries, dtype=bool), np.zeros(n_queries, dtype=np.int64)
+        jstart = plan.words[:, 0].astype(np.int64)
+        jlen = (plan.words[:, 1] & _MAX_JOB_LEN).astype(np.int64)
+        njc_s = np.where(jlen > 0, (jstart % 128 + jlen + cw - 1) // cw, 0)
+        nch_s = np.bincount(
+            plan.jquery, weights=njc_s.astype(np.float64), minlength=n_queries
+        ).astype(np.int64)
+        nc_small = _bucket_vec(nch_s, self._LIGHT_NC_BUCKETS, 4)
+        small = (
+            (plan.njobs > 0)
+            & ~plan.has_range
+            & (nch_s <= self._LIGHT_NC_BUCKETS[-1])
+            & (nc_small * cw < nc_bucket * self.CHUNK)
+        )
+        return small, nc_small
 
     def _pack_dispatches_template(self, n_queries: int, plan: PlannedJobs, tkey):
         """Template-composition packing (IndexConfig.template_compositions).
 
         Returns (dispatches, class_specs) with the class layout drawn from a
-        frozen per-(scorer, k, fmt, window size) template: fixed entry
-        order, fixed row capacities (b_pad == b_out), one dispatch per
-        entry.  Queries that overflow an entry spill into the next larger
-        eligible one (their extra chunk slots are dead padding); only a
-        window the whole template cannot hold re-freezes it."""
+        frozen per-(scorer, k, fmt, window size) template of entries (nc,
+        nj, cap, cw): fixed entry order, fixed row capacities (b_pad ==
+        b_out), one dispatch per entry.  Queries that overflow an entry
+        spill into the next larger eligible entry of their own chunk width
+        (their extra chunk slots are dead padding); only a window the whole
+        template cannot hold re-freezes it."""
         C = self.CHUNK
         nc_b = _bucket_vec(plan.nchunks, self.nc_buckets, self.nc_min)
         nj_b = _bucket_vec(plan.njobs, self.NJ_BUCKETS, 4)
+        small, nc_small = self._light_classes(n_queries, plan, nc_b)
+        nc_eff = np.where(small, nc_small, nc_b)
+        lw = self._light_width()
         alive = plan.njobs > 0
         jpos = self._job_rows(plan, n_queries)
 
-        # Distinct live query classes, ascending (nc, nj).
-        cls = np.where(alive, (nc_b << 12) | nj_b, -1)
+        # Distinct live query classes, ascending (width flag, nc, nj); bit
+        # 30 flags the light width.  A light query's chunk count differs per
+        # width, so it only spills into entries of its own width.
+        cls = np.where(alive, (small.astype(np.int64) << 30) | (nc_eff << 12) | nj_b, -1)
         order = np.argsort(cls, kind="stable")
         scls = cls[order]
         start = int(np.searchsorted(scls, 0))
@@ -1197,8 +1298,9 @@ class DeviceIndex:
         bounds = np.flatnonzero(np.r_[True, qcls[1:] != qcls[:-1], True])
         qclasses = [
             (
-                int(qcls[bounds[i]]) >> 12,
+                (int(qcls[bounds[i]]) >> 12) & 0x3FFFF,
                 int(qcls[bounds[i]]) & 0xFFF,
+                lw if (int(qcls[bounds[i]]) >> 30) else C,
                 qorder[bounds[i] : bounds[i + 1]],
             )
             for i in range(len(bounds) - 1)
@@ -1207,10 +1309,10 @@ class DeviceIndex:
         def try_assign(entries):
             remaining = [e[2] for e in entries]
             buckets = [[] for _ in entries]
-            for ncq, njq, members in qclasses:
+            for ncq, njq, cwq, members in qclasses:
                 pos = 0
-                for ei, (nct, njt, _cap) in enumerate(entries):
-                    if nct < ncq or njt < njq:
+                for ei, e in enumerate(entries):
+                    if self._entry_width(e) != cwq or e[0] < ncq or e[1] < njq:
                         continue
                     take = min(remaining[ei], len(members) - pos)
                     if take:
@@ -1226,28 +1328,31 @@ class DeviceIndex:
         entries = self._comp_templates.get(tkey)
         buckets = try_assign(entries) if entries else None
         if buckets is None:
-            # (Re)freeze.  Per nc: capacity = max(current count x headroom,
-            # previous total capacity), rounded up to 8 rows; nj = the
-            # largest bucket seen.  Capacities only grow, so refreezes
-            # converge.
+            # (Re)freeze.  Per (width, nc): capacity = max(current count x
+            # headroom, previous total capacity), rounded up to 8 rows; nj =
+            # the largest bucket seen.  Capacities only grow, so refreezes
+            # converge.  Entries sort by (width, nc): light ones first.
             headroom = float(self.config.template_headroom)
-            need: Dict[int, int] = {}
-            njmax: Dict[int, int] = {}
-            prev_cap: Dict[int, int] = {}
-            for ncq, njq, members in qclasses:
-                need[ncq] = need.get(ncq, 0) + len(members)
-                njmax[ncq] = max(njmax.get(ncq, 0), njq)
-            for nc, nj, cap in entries or ():
-                prev_cap[nc] = prev_cap.get(nc, 0) + cap
-                njmax[nc] = max(njmax.get(nc, 0), nj)
+            need: Dict[Any, int] = {}
+            njmax: Dict[Any, int] = {}
+            prev_cap: Dict[Any, int] = {}
+            for ncq, njq, cwq, members in qclasses:
+                key = (cwq, ncq)
+                need[key] = need.get(key, 0) + len(members)
+                njmax[key] = max(njmax.get(key, 0), njq)
+            for e in entries or ():
+                key = (self._entry_width(e), e[0])
+                prev_cap[key] = prev_cap.get(key, 0) + e[2]
+                njmax[key] = max(njmax.get(key, 0), e[1])
             entries = []
-            for nc in sorted(set(need) | set(prev_cap)):
-                want = max(int(need.get(nc, 0) * headroom), prev_cap.get(nc, 0))
+            for key in sorted(set(need) | set(prev_cap)):
+                cw, nc = key
+                want = max(int(need.get(key, 0) * headroom), prev_cap.get(key, 0))
                 cap_total = -(-want // 8) * 8
-                b_cap = max(8, (self.LANES_PER_DISPATCH // (nc * C)) // 8 * 8)
+                b_cap = max(8, (self.LANES_PER_DISPATCH // (nc * cw)) // 8 * 8)
                 while cap_total > 0:
                     cap = min(cap_total, b_cap)
-                    entries.append((nc, njmax[nc], cap))
+                    entries.append((nc, njmax[key], cap, cw))
                     cap_total -= cap
             self._comp_templates[tkey] = entries
             self._graphs.pop(tkey, None)
@@ -1258,12 +1363,22 @@ class DeviceIndex:
                     f"template refreeze failed to hold its own window: {entries}"
                 )
 
-        dispatches, class_specs = [], []
-        for (nc, nj, cap), blist in zip(entries, buckets):
+        dispatches = []
+        for e, blist in zip(entries, buckets):
+            nc, nj, cap = e[0], e[1], e[2]
             idxs = np.concatenate(blist) if blist else np.empty(0, dtype=np.int64)
-            dispatches.append((idxs, self._fill_jobs(plan, jpos, idxs, cap, nj), nc, nj, False))
-            class_specs.append((cap, cap, nj, nc, False))
-        return dispatches, tuple(class_specs)
+            jobs = self._fill_jobs(plan, jpos, idxs, cap, nj)
+            dispatches.append((idxs, jobs, nc, nj, False, self._entry_width(e)))
+        return dispatches, self._template_specs(entries)
+
+    def _entry_width(self, e) -> int:
+        """Chunk width of a template entry (nc, nj, cap[, cw]); a 3-tuple
+        (a manifest from before light classes) has the index's width."""
+        return e[3] if len(e) > 3 else self.CHUNK
+
+    def _template_specs(self, entries):
+        """The class specs of a template's entries."""
+        return tuple((e[2], e[2], e[1], e[0], False, self._entry_width(e)) for e in entries)
 
     # ------------------------------------------------------------------ #
     # execution                                                           #
@@ -1300,13 +1415,6 @@ class DeviceIndex:
             out.extend(h.get())
         return out
 
-    def _check_supported(self, scorer) -> None:
-        cfg = self.config
-        if cfg.per_class_dispatch:
-            raise _not_ported("per_class_dispatch", "per-class dispatch")
-        if not cfg.single_dispatch_windows:
-            raise _not_ported("single_dispatch_windows=False", "per-class dispatch")
-
     # ------------------------------------------------------------------ #
     # template manifest and prewarm                                       #
     # ------------------------------------------------------------------ #
@@ -1339,10 +1447,10 @@ class DeviceIndex:
 
     def load_templates(self, path: str) -> int:
         """Load a template manifest written by ``save_templates`` of either
-        package.  Entries are ``(nc, nj, cap)`` or the JAX engine's ``(nc,
-        nj, cap, cw)``; a chunk width ``cw`` other than this index's is a
-        light class, which the port does not serve yet (raises, loading
-        nothing).  Returns the number of templates in the manifest."""
+        package.  Entries are ``(nc, nj, cap, cw)`` (``cw`` the entry's chunk
+        width: a light class's is narrower than the index's) or ``(nc, nj,
+        cap)``, which has the index's width; they load as written.  Returns
+        the number of templates in the manifest."""
         import ast
         import json
 
@@ -1350,18 +1458,10 @@ class DeviceIndex:
             raw = json.load(f)
         loaded = {}
         for ks, entries in raw.items():
-            rows = []
             for e in entries:
                 if len(e) not in (3, 4):
                     raise ValueError(f"template entry {e} of {ks}: expected (nc, nj, cap[, cw])")
-                if len(e) == 4 and int(e[3]) != self.CHUNK:
-                    raise _not_ported(
-                        f"a template entry of chunk width {e[3]} (light classes; this "
-                        f"index's chunk width is {self.CHUNK})",
-                        "per-class dispatch",
-                    )
-                rows.append(tuple(int(x) for x in e[:3]))
-            loaded[ast.literal_eval(ks)] = rows
+            loaded[ast.literal_eval(ks)] = [tuple(int(x) for x in e) for e in entries]
         for key, rows in loaded.items():
             self._comp_templates[key] = rows
             self._graphs.pop(key, None)
@@ -1388,8 +1488,8 @@ class DeviceIndex:
             if tkey[0] != skey:
                 continue
             _skey, k, fmt, _w = tkey
-            specs = tuple((cap, cap, nj, nc, False) for nc, nj, cap in entries)
-            total = sum(cap * nj * 3 for nc, nj, cap in entries)
+            specs = self._template_specs(entries)
+            total = sum(cap * nj * 3 for cap, _b, nj, *_r in specs)
             words = torch.zeros(total + F, dtype=torch.int32, device=self.device)
             words[total:] = torch.from_numpy(boost.view(np.int32)).to(self.device)
             step = self._step(scorer, k, fmt, specs)
@@ -1408,8 +1508,8 @@ class DeviceIndex:
             n = words.numel() - F
             return _window_step(
                 scorer, self.rec, self.field_avg, words[n:].view(torch.float32), words[:n], aux,
-                chunk=self.CHUNK, k=k, qterm_bits=self._qterm_bits, num_fields=F,
-                class_specs=class_specs, fmt=fmt, key_bits=self._key_bits,
+                k=k, qterm_bits=self._qterm_bits, num_fields=F, class_specs=class_specs,
+                fmt=fmt, key_bits=self._key_bits,
             )
 
         return step
@@ -1456,7 +1556,6 @@ class DeviceIndex:
         submit the largest windows the latency budget allows.  A two-phase
         scorer (zero-to-one) takes the z2o window engine, which ignores
         ``fields_boost`` as the scorer does."""
-        self._check_supported(scorer)
         if getattr(scorer, "device_two_phase", False):
             from ..ops.z2o_device import z2o_query_batch_async
 
@@ -1495,6 +1594,10 @@ class DeviceIndex:
         # k = heavy_cache_top_k.
         array_rows = None
         cfg = self.config
+        # A per-dispatch window carries f32 scores under every format, so
+        # its cached rows must carry them too.
+        parts = not cfg.per_class_dispatch and not cfg.single_dispatch_windows
+        need_scores = parts or not fmt.startswith("slots")
         if (
             plan is not None
             and not _heavy
@@ -1511,7 +1614,7 @@ class DeviceIndex:
                     rows_q = plan.words[plan.jquery == qi]
                     ck = (skey, rows_q.tobytes(), boosts_key)
                     hit = self._heavy_cache.get(ck)
-                    if hit is None or (hit[0] is None and not fmt.startswith("slots")):
+                    if hit is None or (hit[0] is None and need_scores):
                         metrics.inc("heavy_cache_misses", 1)
                         sub = self.query_batch_async(
                             [queries[qi]], scorer, tokenizer, fields_boost,
@@ -1561,6 +1664,8 @@ class DeviceIndex:
         with metrics.timer("query/pack"):
             if (
                 cfg.template_compositions
+                and cfg.single_dispatch_windows
+                and not cfg.per_class_dispatch
                 and not bool(plan.has_range.any())
                 and not bool((plan.nchunks > 2048).any())
             ):
@@ -1580,15 +1685,7 @@ class DeviceIndex:
                 array_rows=array_rows, fmt=fmt,
             )
         metrics.inc("dispatches", len(dispatches))
-        if tpl_specs is None:
-            dispatches.sort(key=lambda d: (d[2], d[3], d[1].shape[0]))
-            # Output rows per class: the real query count rounded up to 256.
-            class_specs = tuple(
-                (d[1].shape[0], min(d[1].shape[0], -(-len(d[0]) // 256) * 256), d[3], d[2], d[4])
-                for d in dispatches
-            )
-        else:
-            class_specs = tpl_specs
+        class_specs = composed_class_specs(dispatches) if tpl_specs is None else tpl_specs
         with metrics.timer("query/h2d"):
             # The field boosts ride at the end of the one H2D buffer.
             words_np = np.concatenate(
@@ -1599,10 +1696,21 @@ class DeviceIndex:
             # static input as it replays.
             words_flat = self._pinned(words_np) if graph is not None else self._upload(words_np)
         aux = self._aux_rec(scorer) if any(spec[4] for spec in class_specs) else None
+        if parts:
+            return self._dispatch_parts(
+                scorer, k, dispatches, class_specs, words_flat, aux, len(queries),
+                host_rows, array_rows,
+            )
         with metrics.timer("query/dispatch"):
             if graph is not None:
                 packed = graph.run(words_flat)
             else:
+                # Per-class dispatch runs this same step: the JAX engine's
+                # per-class programs (each class's b_pad rows, a pow2-padded
+                # words buffer, a traced class offset) exist only so that
+                # its compiled programs are keyed on the class shape alone.
+                # The port compiles nothing per window, so the mode differs
+                # from the composed window only in taking no template.
                 packed = self._step(scorer, k, fmt, class_specs, aux)(words_flat)
         layout = []
         row = 0
@@ -1614,6 +1722,35 @@ class DeviceIndex:
             fmt=fmt, k=k, array_rows=array_rows, **self._start_fetch(packed),
         )
 
+    def _dispatch_parts(
+        self, scorer, k, dispatches, class_specs, words_flat, aux, n_queries, host_rows,
+        array_rows,
+    ) -> "PendingBatch":
+        """Per-dispatch windows (``single_dispatch_windows=False``): one step
+        per dispatch over its b_out rows, each part's f32 scores and int32
+        slots kept apart, padded to k with (-inf, -1).  The JAX engine sizes
+        its drained arrays from the first part's width instead, and fails
+        when a later part is wider; the port's parts all have k columns, as
+        a composed window's rows do.  The handle carries no result format:
+        its scores are f32 under every format, as in the JAX engine."""
+        n_words = words_flat.numel() - self.num_fields
+        with metrics.timer("query/dispatch"):
+            outs = _class_outputs(
+                scorer, self.rec, self.field_avg, words_flat[n_words:].view(torch.float32),
+                words_flat[:n_words], aux, k=k, qterm_bits=self._qterm_bits,
+                num_fields=self.num_fields, class_specs=class_specs, key_bits=self._key_bits,
+            )
+            parts = [(idxs, *_pad_k(s, d, k)) for (idxs, *_d), (s, d) in zip(dispatches, outs)]
+        event = None
+        if self.device.type == "cuda" and self.config.prefetch_results:
+            parts = [(idxs, _to_pinned(s), _to_pinned(d)) for idxs, s, d in parts]
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return PendingBatch(
+            self, n_queries, parts=parts, host_rows=host_rows, k=k, array_rows=array_rows,
+            event=event,
+        )
+
     def _start_fetch(self, packed) -> Dict[str, Any]:
         """Start the D2H copy of a window's packed rows behind its kernels
         (``IndexConfig.prefetch_results``), so it streams while later windows
@@ -1621,8 +1758,7 @@ class DeviceIndex:
         the ``host`` / ``event`` arguments of ``PendingBatch``."""
         if self.device.type != "cuda" or not self.config.prefetch_results:
             return {}
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
+        host = _to_pinned(packed)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return {"host": host, "event": event}
@@ -1647,6 +1783,14 @@ class DeviceIndex:
         return self._key_arr
 
 
+def _to_pinned(t):
+    """A pinned host copy of device tensor ``t``, started without blocking
+    (complete once an event recorded after it has passed)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 def key_array(slot_to_key) -> np.ndarray:
     """Doc slot -> user key: an int64 array when every key is a plain int,
     otherwise an object array."""
@@ -1663,12 +1807,16 @@ class PendingBatch:
 
     def __init__(
         self, dix: DeviceIndex, n: int, packed=None, layout=None, host_rows=None,
-        fmt="f32", k=None, array_rows=None, host=None, event=None,
+        fmt="f32", k=None, array_rows=None, host=None, event=None, parts=None,
     ) -> None:
         self._dix = dix
         self._n = n
         self._packed = packed  # device tensor of packed rows (pack_result_rows)
         self._layout = layout  # [(query_indices, row_offset), ...]
+        # Per-dispatch windows: [(query_indices, scores f32[b_out, k], slots
+        # int32[b_out, k]), ...] on the device, or pinned host copies in
+        # flight behind ``event``.
+        self._parts = parts or []
         self._host_rows = host_rows  # {query_index: results} from fallback
         self._fmt = fmt
         # {query_index: (scores | None, slots)} from the heavy-query cache
@@ -1689,6 +1837,13 @@ class PendingBatch:
             else:
                 packed = self._packed.cpu().numpy()
         return unpack_result_rows(packed, self._fmt, self._k)
+
+    def _host_parts(self):
+        """The parts' scores and slots as host arrays, after their copies."""
+        with metrics.timer("query/fetch"):
+            if self._event is not None:
+                self._event.synchronize()
+            return [(idxs, s.cpu().numpy(), d.cpu().numpy()) for idxs, s, d in self._parts]
 
     def get(self) -> List[List[QueryResult]]:
         if self._fmt.startswith("slots") and (
@@ -1713,9 +1868,16 @@ class PendingBatch:
         with metrics.timer("query/drain"):
             slots_only = self._fmt.startswith("slots")
             if self._packed is None:
+                # A parts window carries f32 scores under every format.
                 k = self._k or 0
-                scores = None if slots_only else np.full((self._n, k), -np.inf, np.float32)
+                scores = (
+                    None if slots_only and not self._parts
+                    else np.full((self._n, k), -np.inf, np.float32)
+                )
                 slots = np.full((self._n, k), -1, np.int32)
+                for idxs, top_scores, top_docs in self._host_parts():
+                    scores[idxs] = top_scores[: len(idxs)]
+                    slots[idxs] = top_docs[: len(idxs)]
             else:
                 p_scores, p_slots = self._unpack()
                 k = p_slots.shape[-1]
@@ -1773,3 +1935,8 @@ class PendingBatch:
                 )
                 for i, r in zip(idxs, rows):
                     results[int(i)] = r
+            return
+        for idxs, top_scores, top_docs in self._host_parts():
+            rows = self._dix.to_results(top_scores[: len(idxs)], top_docs[: len(idxs)])
+            for i, r in zip(idxs, rows):
+                results[int(i)] = r

@@ -201,8 +201,8 @@ def prune_plan_cached(dix, plan, pool, k: int, fields_boost) -> Any:
 
     * status 1 (unchanged): the query's rows pass through verbatim -- the
       steady-state cost on no-prune mixes (e.g. the 1M-doc bench mix, where
-      the direct pass re-derived ~5 ms of host work per 16,384 repeated
-      queries in the JAX engine) collapses to one status gather.
+      the direct pass re-derives every repeated query's bounds each window)
+      collapses to one status gather.
     * status 2 (pruned): the pruned rows live in per-key alt pools and are
       spliced in by a vectorized two-source gather.
 

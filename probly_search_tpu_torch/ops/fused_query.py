@@ -7,8 +7,9 @@ the hand-written kernel of ``csrc/fused_query.cu``; on a CPU tensor it runs
 (the staged gather -> score -> presorted merge of the JAX engine), which the
 tests and the chip smoke also hold the kernel against.
 
-``launches`` counts kernel launches per phase.  It moves only where the
-wrapper launches a kernel, never on the CPU path.
+``launches`` counts kernel launches per phase, ``chunk_launches`` the same
+launches by phase and chunk width (``"full@256"``: a light class's).  They
+move only where the wrapper launches a kernel, never on the CPU path.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from . import _build
 from .merge import INVALID_KEY, merge_scores_topk_presorted
 
 launches = {"full": 0, "lanes": 0}
+chunk_launches: dict = {}
 
 # Most chunks of record rows the full phase stages in shared memory at once.
 MAX_RING = 4
@@ -318,4 +320,6 @@ def fused_query_topk(
             f"fused_query {phase} launch failed: {lib.fused_query_error_string(err).decode()}"
         )
     launches[phase] += 1
+    key = f"{phase}@{C}"
+    chunk_launches[key] = chunk_launches.get(key, 0) + 1
     return out_s, out_d

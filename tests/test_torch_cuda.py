@@ -33,8 +33,12 @@ from .torch_util import (
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("F", [1, 2])
-@pytest.mark.parametrize("C,NC", [(128, 6), (1024, 3), (1024, 16), (1024, 24)])
+@pytest.mark.parametrize(
+    "C,NC", [(128, 6), (1024, 3), (1024, 16), (1024, 24), (256, 4), (256, 8), (256, 12)]
+)
 def test_kernel_matches_plain_on_cuda(F, C, NC):
+    """C = 256 at NC 4, 8 and 12: the light classes' chunk width and chunk
+    counts (IndexConfig.light_chunk_size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(C + NC + F)
@@ -144,6 +148,46 @@ def test_serving_large_top_k_on_cuda_matches_cpu():
     got, want = got.get_arrays(), want.get_arrays()
     assert_topk_agree(got[0], got[1], want[0], want[1])
     assert (got[1][0] >= 0).sum() == 2500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["light", "per_class", "per_dispatch"])
+def test_dispatch_modes_on_cuda_match_composed(mode):
+    """A window served with light classes (chunk 256 beside 1,024), per-class
+    dispatch or per-dispatch windows on the card: bit-equal to the composed
+    window on the card (the same kernels on the same class tables; light
+    classes sum the same postings in the same order), and to the CPU by the
+    testing rule."""
+    _cuda()
+    import dataclasses
+    import random
+
+    from probly_search_tpu_torch import Index, IndexConfig
+
+    rng = random.Random(7)
+    vocab = [f"t{i:03d}" for i in range(60)]
+    texts = [" ".join(rng.choice(vocab) for _ in range(5)) + " common" for _ in range(3000)]
+    ix = Index(1, config=IndexConfig(result_format="f32"))
+    ix.add_documents_columnar(list(range(3000)), [texts])
+    window = [f"{vocab[i % 30]} {vocab[(i * 7) % 30]}" for i in range(200)]
+    window += ["common", f"common {vocab[4]}", " ".join(vocab[:8]), "zzz", ""]
+    cfg = {"light": dict(light_chunk_size=256), "per_class": dict(per_class_dispatch=True),
+           "per_dispatch": dict(single_dispatch_windows=False)}[mode]
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    want = dix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    dix.config = dataclasses.replace(ix.config, **cfg)
+    before = fq.launches["full"]
+    got = dix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    assert fq.launches["full"] > before
+    if mode == "light":
+        plan, _fb = dix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
+        assert 256 in {d[5] for d in dix.pack_dispatches(len(window), plan)}
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    cpu.config = dix.config
+    c = cpu.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
 
 
 @pytest.mark.cuda

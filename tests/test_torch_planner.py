@@ -125,10 +125,10 @@ def test_pack_dispatches(engines, monkeypatch, pow2_row_split):
     assert len(pd) == len(jd) > 1
     split = len({d[2] for d in pd}) < len(pd)  # some class spans two dispatches
     assert split == pow2_row_split
-    for (pi, pj, pnc, pnj, prng), (ji, jj, jnc, jnj, jrng, jcw) in zip(pd, jd):
+    for (pi, pj, *pcls), (ji, jj, *jcls) in zip(pd, jd):
         np.testing.assert_array_equal(pi, ji)
         np.testing.assert_array_equal(pj, jj)
-        assert (pnc, pnj, prng, p.CHUNK) == (jnc, jnj, jrng, jcw)
+        assert pcls == jcls and pcls[3] == p.CHUNK  # (nc, nj, rng, cw)
 
 
 def test_pack_dispatches_template_refreeze(engines):
@@ -140,12 +140,12 @@ def test_pack_dispatches_template_refreeze(engines):
         pp, _pfb, jp, _jfb = _plans(engines, window)
         pd, pspecs = p._pack_dispatches_template(len(window), pp, ("t", 10))
         jd, jspecs = j._pack_dispatches_template(len(window), jp, ("t", 10))
-        assert [s[:5] for s in jspecs] == list(pspecs)
+        assert list(jspecs) == list(pspecs)
         assert all(s[4:] == (False, p.CHUNK) for s in jspecs)
-        assert [e[:3] for e in j._comp_templates[("t", 10)]] == p._comp_templates[("t", 10)]
-        for (pi, pj, pnc, pnj, prng), (ji, jj, jnc, jnj, jrng, *_r) in zip(pd, jd):
+        assert j._comp_templates[("t", 10)] == p._comp_templates[("t", 10)]
+        for (pi, pj, *pcls), (ji, jj, *jcls) in zip(pd, jd):
             np.testing.assert_array_equal(pi, ji)
             np.testing.assert_array_equal(pj, jj)
-            assert (pnc, pnj, prng) == (jnc, jnj, jrng)
+            assert pcls == jcls
         frozen.append(list(p._comp_templates[("t", 10)]))
     assert frozen[0] != frozen[1] == frozen[2]

@@ -117,10 +117,10 @@ def test_fallback_corpus_plans_and_dispatches_match_jax(segments, deletes):
     jd = j.pack_dispatches(len(FALLBACK_QUERIES) * 3, jp)
     assert len(pd) == len(jd)
     assert any(d[4] for d in pd) and not all(d[4] for d in pd)
-    for (pi, pj, pnc, pnj, prng), (ji, jj, jnc, jnj, jrng, jcw) in zip(pd, jd):
+    for (pi, pj, pnc, pnj, prng, pcw), (ji, jj, *jcls) in zip(pd, jd):
         np.testing.assert_array_equal(pi, ji)
         np.testing.assert_array_equal(pj, jj)
-        assert (pnc, pnj, prng, p.CHUNK) == (jnc, jnj, jrng, jcw)
+        assert [pnc, pnj, prng, pcw] == jcls and pcw == p.CHUNK
         if prng:
             assert pj.shape[0] <= 2  # range classes: at most 2 rows, unpadded
 

@@ -193,13 +193,27 @@ def test_blocking_serving_loop(served):
     ]
 
 
-def test_not_ported_options_raise(served):
+def test_dispatch_options_serve(served):
+    """Every option of the JAX engine's DeviceIndex is served: per-class
+    dispatch and per-dispatch windows give the composed window's rows, and
+    an index with light classes builds and serves
+    (tests/test_torch_dispatch_modes.py holds the three modes' rows)."""
     _ix, p, windows, _, _ = served
+    want = _port(p, windows[0]).get_arrays()
     for cfg in ({"per_class_dispatch": True}, {"single_dispatch_windows": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(p, windows[0], **cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceIndex(Index(1, config=IndexConfig(light_chunk_size=128)), device="cpu")
+        got = _port(p, windows[0], **cfg).get_arrays()
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    lix = Index(1, config=IndexConfig(light_chunk_size=128), device="cpu")
+    lix.add_documents_columnar([0, 1, 2], [["a b", "b c", "c"]])
+    light = DeviceIndex(lix, device="cpu")
+    assert light._light_width() == 128
+    plan, _fb = light.plan_batch(["b", "c a"], tokenizer, bm25.new())
+    assert {d[5] for d in light.pack_dispatches(2, plan)} == {128}
+    rows = light.query_batch(["b", "c a"], bm25.new(), top_k=3)
+    assert [[r.key for r in row] for row in rows] == [
+        [r.key for r in lix.query(q, bm25.new(), tokenizer, [1.0])[:3]] for q in ("b", "c a")
+    ]
     # zero-to-one is served now (tests/test_torch_z2o.py holds its results)
     z2o = p.query_batch_async(windows[0], zero_to_one.new(), top_k=K).get_arrays()
     assert z2o[1].shape == (len(windows[0]), K) and (z2o[1] >= 0).any()

@@ -10,13 +10,14 @@ as a CUDA graph that later windows of that template replay.  Also
 On the CPU: the JAX engine's template tests on the port, manifests across
 the two packages (equal templates, equal prewarm counts, no refreeze when
 serving afterwards; block-max pruning off in both engines, and on in both),
-the light-class refusal, the joint drain against
+light-class entries (any chunk width), the joint drain against
 per-window drains.  On a card (``cuda``): graph replays bit-equal to the
 eager step over two alternating windows in a depth-4 pipeline, with
 ``prefetch_results`` on and off; the launch tally of capture and replay; a
 refreeze dropping the graph.
 """
 
+import ast
 import dataclasses
 import json
 import os
@@ -130,9 +131,7 @@ def _jax_manifest_into_port(tmp_path, prune):
     assert (_pruned_chunks(metrics) > p0) == prune
     with open(path) as f:
         raw = json.load(f)
-    assert {repr(k): [list(e) for e in v] for k, v in own._comp_templates.items()} == {
-        k: [e[:3] for e in v] for k, v in raw.items()
-    }
+    assert {repr(k): [list(e) for e in v] for k, v in own._comp_templates.items()} == raw
     assert {len(e) for v in raw.values() for e in v} == {4}  # (nc, nj, cap, cw)
 
     dix = _port_index(texts, prune_blocks=prune).device_index()
@@ -200,25 +199,32 @@ def test_bench_manifest_loads():
 
 
 def test_manifest_chunk_widths(tmp_path):
-    """A JAX entry of this index's chunk width loads as (nc, nj, cap); any
-    other width is a light class, refused before anything loads."""
+    """A JAX entry (nc, nj, cap, cw) loads as that 4-tuple, whatever its
+    width (another width is a light class); a 3-tuple entry still has this
+    index's width.  A malformed entry is refused before anything loads."""
     dix = _port_index(_corpus()[0]).device_index()
     key = repr((("bm25", 1.2, 0.75), 5, "f32", 16))
     path = str(tmp_path / "m.json")
     with open(path, "w") as f:
         json.dump({key: [[2, 4, 8, dix.CHUNK], [4, 4, 8]]}, f)
     assert dix.load_templates(path) == 1
-    assert list(dix._comp_templates.values()) == [[(2, 4, 8), (4, 4, 8)]]
+    assert list(dix._comp_templates.values()) == [[(2, 4, 8, dix.CHUNK), (4, 4, 8)]]
+    (entries,) = dix._comp_templates.values()
+    assert [s[5] for s in dix._template_specs(entries)] == [dix.CHUNK, dix.CHUNK]
     other = repr((("bm25", 1.2, 0.75), 5, "f32", 32))
     with open(path, "w") as f:
         json.dump({other: [[2, 4, 8]], key: [[2, 4, 8], [3, 4, 8, 256]]}, f)
-    with pytest.raises(NotImplementedError, match="light classes"):
-        dix.load_templates(path)
-    assert list(dix._comp_templates.values()) == [[(2, 4, 8), (4, 4, 8)]]
+    assert dix.load_templates(path) == 2
+    assert dix._comp_templates[ast.literal_eval(key)] == [(2, 4, 8), (3, 4, 8, 256)]
+    assert dix._template_specs(dix._comp_templates[ast.literal_eval(key)]) == (
+        (8, 8, 4, 2, False, dix.CHUNK), (8, 8, 4, 3, False, 256),
+    )
+    before = dict(dix._comp_templates)
     with open(path, "w") as f:
-        json.dump({key: [[2, 4]]}, f)
+        json.dump({other: [[2, 4, 8, 128]], key: [[2, 4]]}, f)
     with pytest.raises(ValueError, match="nc, nj, cap"):
         dix.load_templates(path)
+    assert dix._comp_templates == before
 
 
 def test_fetch_windows_jointly_matches_separate_drains():

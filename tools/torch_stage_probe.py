@@ -318,7 +318,7 @@ def probe_window(root: str, stages: bool):
         return call()
 
     rec_of = {"window": dix.rec}
-    for _idxs, jobs_flat, nc, nj, _rng in dispatches:
+    for _idxs, jobs_flat, nc, nj, _rng, *_cw in dispatches:  # 5-tuples before light classes
         L = nc * dix.CHUNK
         jobs = torch.from_numpy(jobs_flat).cuda().reshape(jobs_flat.shape[0], nj, 3)
         tables = pdev.expand_chunks(jobs, dix.CHUNK, nc)
