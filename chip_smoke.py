@@ -46,19 +46,25 @@ Phases (any failure raises, so the exit code is not 0):
   3g. the graph path over that index: a second DeviceIndex loads
      benchmarks/bench_templates.json and prewarms (one CUDA graph per
      template; seconds and memory reserved); 8 pipelined windows served
-     eager, graph, graph, eager (ms/window, p50, host phases, replays,
-     launches); the graph path's slots equal to the eager path's, no
+     on phase 3's index (class graphs), graph, graph, class graphs
+     (ms/window, p50, host phases, replays, launches); the graph path's
+     slots equal to the class graphs' path's, no
      refreeze, recall@10 1.0; the window's replay time with the L2 cold and
      warm; each path's kernels per window under torch.profiler beside the
      launch tally and the captured step's kernel nodes; a pair of windows
      drained jointly (fetch_windows_jointly) against two drained apart;
   3c. a user's one-phase scorer (TfBoost, tests/torch_util.py) on that
-     index: one window of 256 queries through staged lanes + K5, f32 rows
-     against the f64 host oracle;
+     index: one window of 256 queries through staged lanes + K5, served
+     cold, warm, eagerly and warm again (ms, query/dispatch, captures,
+     replays, keys, pool bytes; the warm window bit-equal to the eager
+     step on its words), f32 rows against the f64 host oracle;
   3r. term-range jobs on that index: phase 3's first window with every 64th
      query's first term cut to its first four characters (a prefix of 100
      terms) and the last three queries replaced by t0, t00 and t1, served
-     cold, then warm; classes by route, K5 launches, ms submit to drained;
+     cold (class graphs captured), warm, eagerly (the same class steps,
+     EagerClasses) and warm again: ms submit to drained, query/dispatch,
+     captures and replays, keys, pool bytes, the warm window bit-equal to
+     the eager step on its words; classes by route, K5 launches;
      the distribution of K5's L over the range classes, K5 calls by path and
      K5's kernel launches per warm window (torch.profiler); recall@10 of
      every range query against the f64 vectorized BM25 host path, the 16
@@ -77,28 +83,33 @@ Phases (any failure raises, so the exit code is not 0):
      exceeds every achievable threshold at this size: nothing can prune);
   3l. the dispatch modes on that index (after 3p), flipped on its
      DeviceIndex's config between turns: (a) light classes
-     (light_chunk_size 256) on and off, eager composed (templates off), in
-     alternating turns: classes and lanes by chunk width, ms a window and
-     p50 (medians of 3 turns of 4 queued windows), device busy of one
+     (light_chunk_size 256) on and off, composed (templates off: class
+     graphs), in alternating turns: classes and lanes by chunk width, ms a
+     window and p50 (medians of 3 turns of 4 queued windows), device busy of one
      window (torch.profiler), K1's device time summed over the window's
      classes on and off (one captured call a class, L2 cold), slots
      bit-equal on and off, recall@10 of the light rows against the f64
      oracle on 256 queries; (b) a light template frozen, saved (entries of
      width 256), loaded into a fresh DeviceIndex and prewarmed: 8 pipelined
      windows on its CUDA graph beside 3g's graph path in turns, slots equal
-     to (a)'s eager rows, 0 refreezes, replays counted; (c) per-class
-     dispatch and per-dispatch windows on phase 3's two windows beside the
-     composed eager window in turns (4 queued windows a turn: ms a window,
-     launches), f32 scores and
-     slots bit-equal; (d) K1 at chunk 256 against plain on every light class
-     of the first window (max error, CUDA-event and device times, bound);
+     to (a)'s rows, 0 refreezes, replays counted; (c) per-class dispatch
+     and per-dispatch windows on phase 3's two windows beside the composed
+     window, each on the class graphs and on the same class steps run
+     eagerly, in turns (4 queued windows a turn: ms a window, query/dispatch
+     per window, cold and warm, launches, captures, replays, keys, pool
+     bytes), f32 scores and slots bit-equal, a warm window of each mode
+     bit-equal to the eager step on its words; (d) K1 at chunk 256 against
+     plain on every light class of the first window (max error, CUDA-event
+     and device times, bound);
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
-     class's route, and the rows held against the f64 oracle on 64 queries;
+     class's route; served cold, warm, eagerly and warm again (ms,
+     z2o/dispatch, captures, keys, pool bytes, the warm window bit-equal to
+     the eager step); the rows held against the f64 oracle on 64 queries;
   3s. the doc-sharded engine (parallel/) on that index: 4 doc shards on one
      card (make_mesh(1, 4, devices=["cuda:0"] * 4)); the sharded snapshot's
      build seconds and bytes on the card; 8 pipelined windows of phase 3
-     (depth 4, paired late drains) in turns single-device eager, sharded,
-     sharded, single-device eager (ms/window, QPS, p50, the sharded/* host
+     (depth 4, paired late drains) in turns single-device, sharded,
+     sharded, single-device (ms/window, QPS, p50, the sharded/* host
      phases, launches); both windows in f32 against the single-device
      engine by the testing rule, the served slots20 slots equal to them,
      recall@10 against the f64 oracle on 256 queries; a head-term window
@@ -118,8 +129,11 @@ Phases (any failure raises, so the exit code is not 0):
      8-token body, Zipf(1.05) over 4,000 terms, seed 7; 2-term queries with
      the top 50 ranks excluded; 16,384-query windows, top-10, "slots"):
      8 windows through z2o_query_batch_async with a depth-4 pipeline and
-     paired late drains; launch counts of the kernel and the torch programs,
-     ms/window, QPS, recall@10 against the f64 oracle on 256 queries, every
+     paired late drains (z2o/dispatch of the warm-up's windows, cold and
+     warm; captures, replays, keys, pool bytes); launch counts of the kernel
+     and the torch programs, ms/window, QPS; a window bit-equal to the eager
+     step on its words; class graphs against eager in turns (8 pipelined
+     windows a turn); recall@10 against the f64 oracle on 256 queries, every
      kernel class of one window held kernel against plain on its real
      tables (CUDA-event and device times), and a torch.profiler breakdown
      of one window;
@@ -128,6 +142,9 @@ Phases (any failure raises, so the exit code is not 0):
      slots equal to the single-device engine's, tie-aware recall@10
      against the f64 oracle on 256 queries, and K4 held against plain on
      every K4 class of shard 0 at that shard's key_bits.
+Every single-device window without a frozen template's CUDA graph replays
+cached class graphs (index/device.py ClassGraphs); "eager" turns swap in
+tests/torch_util.EagerClasses, which runs the same class steps eagerly.
 The line before the last is the kernels' JSON record (K1 a second time at
 chunk 256, its launches those of 3l's light windows); the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits
@@ -164,7 +181,9 @@ from probly_search_tpu_torch.ops import launch_probe as lp  # noqa: E402
 from probly_search_tpu_torch.ops import z2o_device as pz  # noqa: E402
 from probly_search_tpu_torch.ops.fused_query import padded_rows  # noqa: E402
 from probly_search_tpu_torch.testing import ATOL, RTOL, assert_topk_agree  # noqa: E402
-from tests.torch_util import Z2O_EDGES, Z2O_ROW0_EDGES, TfBoost, merge_edge_rows, z2o_edge  # noqa: E402
+from tests.torch_util import (  # noqa: E402
+    Z2O_EDGES, Z2O_ROW0_EDGES, EagerClasses, TfBoost, merge_edge_rows, z2o_edge,
+)
 
 SEED = 0
 C = 1024
@@ -823,6 +842,93 @@ def profile_windows(submit, n=4):
     return {e.key: (e.count / n, e.self_device_time_total / 1e3 / n) for e in events}
 
 
+def graph_stats(d):
+    """The class-graph counters since the last metrics reset, and the state
+    of ``d``'s cache: keys captured so far and the bytes its pool reserved."""
+    c = pdev.metrics.snapshot()["counters"]
+    g = d._class_graphs
+    return (f"class graphs {int(c.get('class_graph_captures', 0))} captured, "
+            f"{int(c.get('class_graph_replays', 0))} replayed; {len(g)} keys, pool "
+            f"{g.pool_bytes} B ({g.pool_bytes / 2**20:.1f} MiB)")
+
+
+def timer_ms(name):
+    """Total ms of the host timer ``name`` since the last metrics reset."""
+    h = pdev.metrics.histograms.get(name)
+    return h.sum_us / 1e3 if h is not None else 0.0
+
+
+def submit_timed(submit, name):
+    """``submit()``, and the ms its ``name`` timer took."""
+    t = timer_ms(name)
+    h = submit()
+    return h, timer_ms(name) - t
+
+
+class Recorded:
+    """Within the block, each window ``d`` serves records its classes (the
+    ``ClassGraphs.run`` argument) in ``windows``."""
+
+    def __init__(self, d):
+        self.d, self.windows = d, []
+
+    def __enter__(self):
+        real = self.d._class_graphs.run
+
+        def run(classes, concat=False):
+            self.windows.append(list(classes))
+            return real(classes, concat)
+
+        self.d._class_graphs.run = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.d._class_graphs.run
+
+
+def eager_step_check(d, handle, classes, label, scorer=None):
+    """The served rows of one window (``handle``, recorded ``classes``)
+    against the eager step called directly on the same words: BM25 classes
+    through ``_window_step`` (``_class_outputs`` for a per-dispatch window,
+    f32 scores and slots), z2o classes through ``_z2o_window_step``;
+    bit-equal.  The launches of the eager step are taken back out."""
+    saved = [dict(c) for c in pdev._launch_counters()]
+    keys = [key for key, _m, _p in classes]
+    key = keys[0]
+    words = torch.cat([p[0] for _k, _m, p in classes]).cuda()
+    extra = torch.cat([p[1] for _k, _m, p in classes]).cuda()
+    if isinstance(key, pz.Z2OClassKey):
+        specs = tuple((x.b_out, x.b_out, x.nj, x.num_chunks, x.fast) for x in keys)
+        want = pz._z2o_window_step(
+            d.rec, words, extra.view(torch.float32), chunk=key.chunk, k=key.k,
+            num_fields=key.num_fields, class_specs=specs, fused_ok=key.fused_ok, fmt=key.fmt,
+            key_bits=key.key_bits)
+        want, got = [want], [handle._packed]
+    else:
+        specs = tuple((x.b_out, x.b_out, x.nj, x.num_chunks, x.use_ranges, x.chunk) for x in keys)
+        aux = d._aux_rec(scorer) if any(x.use_ranges for x in keys) else None
+        boost = classes[0][2][1].cuda().view(torch.float32)
+        kw = dict(k=key.k, qterm_bits=key.qterm_bits, num_fields=key.num_fields,
+                  class_specs=specs, key_bits=key.key_bits)
+        if key.fmt == "parts":
+            outs = pdev._class_outputs(scorer, d.rec, d.field_avg, boost, words, aux, **kw)
+            want = [t for s_, d_ in outs for t in pdev._pad_k(s_, d_, key.k)]
+            got = [t for _i, s_, d_ in handle._parts for t in (s_, d_)]
+        else:
+            want = [pdev._window_step(scorer, d.rec, d.field_avg, boost, words, aux,
+                                      fmt=key.fmt, **kw)]
+            got = [handle._packed]
+    torch.cuda.synchronize()
+    assert len(got) == len(want), (label, len(got), len(want))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu()), f"{label}: served rows differ from the eager step"
+    for counts, was in zip(pdev._launch_counters(), saved):
+        counts.clear()
+        counts.update(was)
+    log(f"{label}: served rows bit-equal to the eager step on the same words ({len(keys)} classes, "
+        f"{len(set(keys))} keys, format {key.fmt})")
+
+
 def phase_main(scorer, card):
     t0 = time.time()
     vocab, cdf, texts = make_corpus(N_DOCS, 50_000, 8)
@@ -838,11 +944,16 @@ def phase_main(scorer, card):
     windows = [queries[:WINDOW], queries[WINDOW:]]
     k = 10
 
-    for _ in range(2):  # warm-up: plan pools, heavy cache, template freeze
+    pdev.metrics.reset()
+    disp = []
+    for _ in range(2):  # warm-up: plan pools, heavy cache, template freeze, class graphs
         for w in windows:
-            dix.query_batch_async(w, scorer, top_k=k).get_arrays()
+            h, ms = submit_timed(lambda: dix.query_batch_async(w, scorer, top_k=k), "query/dispatch")
+            h.get_arrays()
+            disp.append(ms)
     torch.cuda.synchronize()
-    log(f"warm-up (2 passes): {time.time() - t2:.1f} s")
+    log(f"warm-up (2 passes): {time.time() - t2:.1f} s; query/dispatch per window (ms, the first "
+        f"two capture) {', '.join(f'{v:.3f}' for v in disp)}; {graph_stats(dix)}")
 
     dispatches, specs = window_classes(dix, windows[0], scorer, k)
     for _idxs, jobs_flat, nc, nj, _rng, _cw in dispatches:
@@ -861,7 +972,7 @@ def phase_main(scorer, card):
         np.testing.assert_array_equal(slots, out[i % 2][1])  # same window, same answer
     log(f"served 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} ms/window, "
         f"{8 * WINDOW / dt:.1f} QPS; window latency p50 {np.median(lat_ms):.1f} ms "
-        "(host clock, pipeline of 4; for information only)")
+        f"(host clock, pipeline of 4; for information only); {graph_stats(dix)}")
 
     hist = pdev.metrics.snapshot()["histograms"]
     log("host phases per window (mean ms, host clock): " + ", ".join(
@@ -927,8 +1038,9 @@ MANIFEST = os.path.join(ROOT, "benchmarks", "bench_templates.json")
 def phase_graphs(ix, dix, windows, scorer, card):
     """Phase 3g: the graph path.  A second DeviceIndex over the same index
     loads the bench manifest and prewarms (one CUDA graph per template);
-    8 pipelined windows are served eager, graph, graph, eager; the graph
-    path's slots must equal the eager path's, with no refreeze and recall@10
+    8 pipelined windows are served on phase 3's index (class graphs: no
+    prewarm), graph, graph, class graphs; the graph path's slots must equal
+    the class graphs' path's, with no refreeze and recall@10
     1.0.  Then the window's replay timed with the L2 cold and warm, the
     profiler's kernel count per window beside the launch tally and the
     captured step's kernel nodes, and a pair of windows drained jointly
@@ -967,7 +1079,7 @@ def phase_graphs(ix, dix, windows, scorer, card):
     assert not ctr.get("template_refreezes") and ctr.get("template_graph_replays") == 4, ctr
 
     turns = []
-    for turn, x in (("eager", dix), ("graph", gix), ("graph", gix), ("eager", dix)):
+    for turn, x in (("class graphs", dix), ("graph", gix), ("graph", gix), ("class graphs", dix)):
         reset_bm25_counts()
         dt, lat_ms, out = serve_pipelined(lambda i, x=x: x.query_batch_async(windows[i % 2], scorer, top_k=k))
         counts = bm25_counts()
@@ -990,7 +1102,7 @@ def phase_graphs(ix, dix, windows, scorer, card):
             np.testing.assert_array_equal(got[2], want[2])
     _s, slots, keys = turns[1][1][0]  # the graph path's first window
     recall = bm25_recall(ix, windows[0][:256], slots, keys, k)
-    log(f"3g the graph path's slots equal the eager path's (3 turns x 8 windows); recall@{k} of its "
+    log(f"3g the graph path's slots equal the class graphs' path's (3 turns x 8 windows); recall@{k} of its "
         f"first 256 rows against the f64 oracle: {recall!r}")
     assert recall == 1.0, recall
 
@@ -1001,7 +1113,7 @@ def phase_graphs(ix, dix, windows, scorer, card):
         "(10 replays back to back)")
     step = gix._step(scorer, k, "slots20", gix._template_specs(entries))
     nodes = kernels_per_call(lambda: step(g.words))
-    for turn, x in (("eager", dix), ("graph", gix)):
+    for turn, x in (("class graphs", dix), ("graph", gix)):
         reset_bm25_counts()
         ev = profile_windows(lambda i, x=x: x.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
         want = tally_kernels(bm25_counts(), dix._key_bits) / 2
@@ -1040,14 +1152,30 @@ def phase_custom(ix, dix, sample):
     k = 10
     reset_bm25_counts()
     dix.config = dataclasses.replace(ix.config, result_format="f32")
+    graphs = dix._class_graphs
+    runs = {}
     try:
-        t = time.perf_counter()
-        scores, slots, _keys = dix.query_batch_async(sample, TfBoost(), top_k=k).get_arrays()
-        ms = 1e3 * (time.perf_counter() - t)
+        for run in ("cold", "warm", "eager", "warm again"):
+            dix._class_graphs = EagerClasses(dix.device) if run == "eager" else graphs
+            if run == "warm":
+                counts = bm25_counts()
+                stats = graph_stats(dix)
+            with Recorded(dix) as rec:
+                t = time.perf_counter()
+                h, disp = submit_timed(lambda: dix.query_batch_async(sample, TfBoost(), top_k=k),
+                                       "query/dispatch")
+                scores, slots, _keys = h.get_arrays()
+                runs[run] = (1e3 * (time.perf_counter() - t), disp)
+            if run == "warm":
+                eager_step_check(dix, h, rec.windows[-1], "3c warm window", TfBoost())
     finally:
         dix.config = ix.config
-    counts = bm25_counts()
+        dix._class_graphs = graphs
     assert counts["merge_topk"] > 0 and counts["full"] == counts["lanes"] == 0, counts
+    log(f"3c TfBoost window ({len(sample)} queries) ms submit to drained / query/dispatch ms: "
+        + ", ".join(f"{run} {ms_:.3f} / {d_:.3f}" for run, (ms_, d_) in runs.items())
+        + f" (eager: the same class steps run eagerly); cold window {stats}")
+    ms = runs["cold"][0]
     t = time.perf_counter()
     o_s = np.full((len(sample), k), -np.inf, np.float32)
     o_d = np.full((len(sample), k), -1, np.int32)
@@ -1254,11 +1382,12 @@ def class_census(classes):
 
 def phase_light(ix, dix, gix, windows, scorer, card):
     """Phase 3l: the dispatch modes on phase 3's index, options flipped on
-    ``dix.config`` between turns.  (a) light classes on and off, eager
-    composed (templates off), in alternating turns; (b) a light template
+    ``dix.config`` between turns.  (a) light classes on and off, composed
+    (templates off: class graphs), in alternating turns; (b) a light template
     frozen, saved, loaded into a fresh DeviceIndex and prewarmed, served on
     the graph path beside 3g's graph path (``gix``); (c) per-class dispatch
-    and per-dispatch windows beside the composed eager window; (d) K1
+    and per-dispatch windows beside the composed window, on the class graphs
+    and eagerly; (d) K1
     against plain on every light class of the first window.  Returns
     (K1's launches at chunk 256 on (a) and (b), (d)'s record)."""
     k = 10
@@ -1367,35 +1496,49 @@ def phase_light(ix, dix, gix, windows, scorer, card):
                                       err_msg="3l (b): graph rows differ from (a)'s eager rows")
     log("3l (b) the light graph path's slots equal (a)'s eager rows (and 3g's graph path's)")
 
-    # (c) per-class dispatch and per-dispatch windows against the composed window
+    # (c) per-class dispatch and per-dispatch windows against the composed
+    # window, each on the class graphs and on the same class steps run
+    # eagerly (EagerClasses), in turns
     f32 = dataclasses.replace(off, result_format="f32")
     modes = {
         "composed": f32,
         "per_class": dataclasses.replace(f32, per_class_dispatch=True),
         "per_dispatch": dataclasses.replace(f32, single_dispatch_windows=False),
     }
-    want, times_ = None, {m: [] for m in modes}
-    for name in ("composed", "per_class", "per_dispatch", "per_dispatch", "per_class", "composed"):
+    graphs, eager = dix._class_graphs, EagerClasses(dix.device)
+    order = [(m, p) for m in modes for p in ("graphs", "eager")]
+    want, times_ = None, {(m, p): [] for m, p in order}
+    for name, path in order + order[::-1]:
         dix.config = modes[name]
+        dix._class_graphs = graphs if path == "graphs" else eager
         reset_bm25_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        handles = [dix.query_batch_async(w, scorer, top_k=k) for w in windows + windows]
+        subs = []
+        with Recorded(dix) as rec:
+            for w in windows + windows:
+                h, d_ = submit_timed(lambda: dix.query_batch_async(w, scorer, top_k=k), "query/dispatch")
+                subs.append((h, d_, rec.windows[-1]))
         t_sub = time.perf_counter() - t
-        arrays = [h.get_arrays() for h in handles]
-        times_[name].append(1e3 * (time.perf_counter() - t) / 4)
+        arrays = [h.get_arrays() for h, _d, _c in subs]
+        times_[name, path].append(1e3 * (time.perf_counter() - t) / 4)
         hist = pdev.metrics.snapshot()["histograms"]
-        log(f"3l (c) {name}: {times_[name][-1]:.3f} ms/window (4 windows submitted, then drained; "
-            f"submit {1e3 * t_sub / 4:.3f} ms/window); host phases (mean ms): " + ", ".join(
+        log(f"3l (c) {name} {path}: {times_[name, path][-1]:.3f} ms/window (4 windows submitted, "
+            f"then drained; submit {1e3 * t_sub / 4:.3f} ms/window); query/dispatch per window "
+            f"{', '.join(f'{d_:.3f}' for _h, d_, _c in subs)} ms; host phases (mean ms): " + ", ".join(
                 f"{p} {hist[f'query/{p}']['mean_us'] / 1e3:.3f}" for p in HOST_PHASES
-                if f"query/{p}" in hist) + f"; launches {bm25_counts()}")
+                if f"query/{p}" in hist) + f"; launches {bm25_counts()}"
+            + (f"; {graph_stats(dix)}" if path == "graphs" else ""))
+        if path == "graphs" and len(times_[name, path]) == 1:
+            eager_step_check(dix, subs[2][0], subs[2][2], f"3l (c) {name} (a warm window)", scorer)
         want = want or arrays
         for got, ref in zip(arrays, want):
             np.testing.assert_array_equal(got[0], ref[0], err_msg=f"3l (c) {name}: scores differ")
             np.testing.assert_array_equal(got[1], ref[1], err_msg=f"3l (c) {name}: slots differ")
-    log("3l (c) per-class and per-dispatch windows: f32 scores and slots bit-equal to the composed "
-        "window; ms/window " + ", ".join(f"{m} {', '.join(f'{v:.3f}' for v in t)}"
-                                         for m, t in times_.items()))
+    dix._class_graphs = graphs
+    log("3l (c) per-class and per-dispatch windows, class graphs and eager: f32 scores and slots "
+        "bit-equal to the composed window; ms/window " + ", ".join(
+            f"{m} {p} {', '.join(f'{v:.3f}' for v in t)}" for (m, p), t in times_.items()))
 
     # (d) K1 against plain on every light class of the first window
     dix.config = on
@@ -1429,39 +1572,52 @@ RANGE_ROWS = {}
 
 def phase_ranges(ix, dix, window, scorer, errs, times):
     """Term-range jobs at full size (phase 3r); adds K5's checks on the
-    window's range classes to ``errs`` / ``times``.  Returns K5's launches
-    over the cold and the warm window."""
+    window's range classes to ``errs`` / ``times``.  The window is served
+    cold (class graphs captured), warm, eagerly (``EagerClasses``) and warm
+    again.  Returns K5's launches over those four windows."""
     import dataclasses
 
     k = 10
     w, rq = range_window(window)
-    shapes, packed = [], []
-    real_merge, real_pack = pdev.merge_scores_topk_fused, dix.pack_dispatches
-
-    def merge_spy(key, *a, **kw):
-        shapes.append(tuple(key.shape))
-        return real_merge(key, *a, **kw)
+    packed = []
+    real_pack = dix.pack_dispatches
 
     def pack_spy(n, plan):
         packed.append(real_pack(n, plan))
         return packed[-1]
 
     reset_bm25_counts()
-    pdev.merge_scores_topk_fused, dix.pack_dispatches = merge_spy, pack_spy
-    ms = {}
+    dix.pack_dispatches = pack_spy
+    graphs = dix._class_graphs
+    ms, disp, stats, outs = {}, {}, {}, {}
     try:
-        for run in ("cold", "warm"):
+        for run in ("cold", "warm", "eager", "warm again"):
+            dix._class_graphs = EagerClasses(dix.device) if run == "eager" else graphs
             packed.clear()
-            shapes.clear()
             for key in fm.path_calls:
                 fm.path_calls[key] = 0
-            t = time.perf_counter()
-            _s, slots, _keys = dix.query_batch_async(w, scorer, top_k=k).get_arrays()
-            torch.cuda.synchronize()
-            ms[run] = 1e3 * (time.perf_counter() - t)
+            before = pdev.metrics.snapshot()["counters"]
+            with Recorded(dix) as rec:
+                t = time.perf_counter()
+                h, disp[run] = submit_timed(lambda: dix.query_batch_async(w, scorer, top_k=k),
+                                            "query/dispatch")
+                _s, slots, _keys = h.get_arrays()
+                torch.cuda.synchronize()
+                ms[run] = 1e3 * (time.perf_counter() - t)
+            after = pdev.metrics.snapshot()["counters"]
+            stats[run] = {name: int(after.get(name, 0) - before.get(name, 0))
+                          for name in ("class_graph_captures", "class_graph_replays")}
+            outs[run] = slots
+            if run == "warm":
+                path_calls = dict(fm.path_calls)
+                classes = rec.windows[-1]
+                eager_step_check(dix, h, classes, "3r warm window", scorer)
     finally:
-        pdev.merge_scores_topk_fused = real_merge
         del dix.pack_dispatches
+        dix._class_graphs = graphs
+    for run, out in outs.items():
+        np.testing.assert_array_equal(out, outs["cold"], err_msg=f"3r {run}: rows differ")
+    slots = outs["cold"]
     counts = {**fq.launches, **fm.launches}
     ctr = pdev.metrics.snapshot()["counters"]
     routes = {}
@@ -1470,23 +1626,30 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
         r = routes.setdefault(route, [0, 0])
         r[0] += 1
         r[1] += len(idxs)
-    lanes = [L for _B, L in shapes]
+    # K5's calls of the warm window: one per range class (a full sort of its
+    # lanes) and one per class past the fused kernel's lanes (after K3).
+    lanes = [key.num_chunks * key.chunk for key, _m, _p in classes
+             if key.use_ranges or key.num_chunks * key.chunk > pdev._FUSED_MAX_LANES]
     plan, fallback = dix.plan_batch(w, TOK, scorer)
     range_host = sorted(set(fallback) & set(rq))
-    log(f"3r window ({len(w)} queries, {len(rq)} with a range term): cold {ms['cold']:.3f} ms, "
-        f"warm {ms['warm']:.3f} ms submit to drained")
+    log(f"3r window ({len(w)} queries, {len(rq)} with a range term), ms submit to drained / "
+        f"query/dispatch ms: " + ", ".join(f"{run} {ms[run]:.3f} / {disp[run]:.3f}" for run in ms)
+        + f" (eager: the same class steps run eagerly); class graphs captured / replayed by run "
+        f"{ {run: (v['class_graph_captures'], v['class_graph_replays']) for run, v in stats.items()} }; "
+        f"{len(graphs)} keys, pool {graphs.pool_bytes} B ({graphs.pool_bytes / 2**20:.1f} MiB)")
     log(f"3r classes of the warm window by route (dispatches, rows): {routes}; heavy-cache "
         f"hits {int(ctr.get('heavy_cache_hits', 0))}, misses {int(ctr.get('heavy_cache_misses', 0))}; "
         f"host rows {int(ctr.get('device_fallback_queries', 0))} ({len(range_host)} of range queries)")
-    log(f"3r launches over cold + warm: {counts}")
+    log(f"3r launches over the four runs: {counts}")
     q = np.percentile(lanes, [0, 10, 25, 50, 75, 90, 100]).astype(int).tolist()
     log(f"3r K5 L over the warm window's {len(lanes)} calls: percentiles 0/10/25/50/75/90/100 "
         f"{q}; L <= {fm.TILE_LANES}: {sum(L <= fm.TILE_LANES for L in lanes)}, <= 32768: "
         f"{sum(fm.TILE_LANES < L <= 32768 for L in lanes)}, longer: "
-        f"{sum(L > 32768 for L in lanes)}; calls by path {dict(fm.path_calls)}")
+        f"{sum(L > 32768 for L in lanes)}; calls by path {path_calls}")
+    assert sum(path_calls.values()) == len(lanes), (path_calls, len(lanes))
     assert plan.has_range[rq].all() and plan.has_range.sum() == len(rq)
     assert not range_host and counts["merge_topk"] > 0 and routes.get("range+K5"), (range_host, counts)
-    want = fm.path_calls["block"] + fm.path_calls["radix"] * path_kernels("radix", dix._key_bits)
+    want = path_calls["block"] + path_calls["radix"] * path_kernels("radix", dix._key_bits)
     ev = profile_windows(lambda i: dix.query_batch_async(w, scorer, top_k=k), n=2)
     k5 = {name: c for name, c in ev.items() if any(x in name for x in K5_KERNELS)}
     got = sum(c for c, _ms in k5.values())
@@ -1688,8 +1851,8 @@ def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
     log(f"3s warm-up (2 passes): {time.perf_counter() - t:.1f} s")
 
     turns = []
-    for turn, d in (("single-device eager", dix), ("sharded", sdix), ("sharded", sdix),
-                    ("single-device eager", dix)):
+    for turn, d in (("single-device", dix), ("sharded", sdix), ("sharded", sdix),
+                    ("single-device", dix)):
         reset_bm25_counts()
         dt, lat_ms, out = serve_pipelined(lambda i, d=d: d.query_batch_async(windows[i % 2], scorer, top_k=k))
         counts = bm25_counts()
@@ -1813,7 +1976,7 @@ def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
     reset_bm25_counts()
     log("3s one sharded window, profiled:")
     ev_s = profile_windows(lambda i: sdix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
-    log("3s one single-device eager window, profiled:")
+    log("3s one single-device window (class graphs), profiled:")
     ev_d = profile_windows(lambda i: dix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
     log(f"3s device busy a window: sharded {sum(ms_ for _c, ms_ in ev_s.values()):.3f} ms, "
         f"single-device {sum(ms_ for _c, ms_ in ev_d.values()):.3f} ms")
@@ -1967,6 +2130,15 @@ def z2o_50k():
     return list(range(n_docs)), [titles, bodies], [queries[:WINDOW], queries[WINDOW:]]
 
 
+def z2o_host_phases(label):
+    hist = pdev.metrics.snapshot()["histograms"]
+    log(f"{label}: " + ", ".join(
+        f"{name} {hist[name]['mean_us'] / 1e3:.3f}"
+        for name in ("z2o/plan", "z2o/pack", "z2o/h2d", "z2o/dispatch", "query/fetch", "query/drain")
+        if name in hist
+    ))
+
+
 def reset_z2o_counts():
     for counts in (fz.launches, pz.launches):
         for key in counts:
@@ -1986,11 +2158,31 @@ def phase_z2o_1m(ix, dix, window):
     for (b_pad, b_out, nj, nc, _fast), route, _jobs, _ql in z2o_window_classes(dix, window, k):
         log(f"1M z2o class nc={nc:5d} nj={nj:4d} rows={b_out:6d}/{b_pad:6d} route={route}")
     reset_z2o_counts()
-    t = time.perf_counter()
-    scores, slots, keys = pz.z2o_query_batch_async(dix, window, TOK, k, fmt="f32").get_arrays()
-    torch.cuda.synchronize()
-    log(f"1M z2o window ({WINDOW} queries): {1e3 * (time.perf_counter() - t):.3f} ms "
-        f"submit to drained, launches {z2o_counts()}")
+    graphs = dix._class_graphs
+    runs, outs = {}, {}
+    try:
+        for run in ("cold", "warm", "eager", "warm again"):
+            dix._class_graphs = EagerClasses(dix.device) if run == "eager" else graphs
+            with Recorded(dix) as rec:
+                t = time.perf_counter()
+                h, disp = submit_timed(lambda: pz.z2o_query_batch_async(dix, window, TOK, k, fmt="f32"),
+                                       "z2o/dispatch")
+                outs[run] = h.get_arrays()
+                torch.cuda.synchronize()
+                runs[run] = (1e3 * (time.perf_counter() - t), disp)
+            if run == "cold":
+                counts, stats = z2o_counts(), graph_stats(dix)
+            if run == "warm":
+                eager_step_check(dix, h, rec.windows[-1], "1M z2o warm window")
+    finally:
+        dix._class_graphs = graphs
+    for run, out in outs.items():
+        for a, b in zip(out, outs["cold"]):
+            np.testing.assert_array_equal(a, b, err_msg=f"1M z2o {run}: rows differ")
+    scores, slots, keys = outs["cold"]
+    log(f"1M z2o window ({WINDOW} queries) ms submit to drained / z2o/dispatch ms: "
+        + ", ".join(f"{run} {ms_:.3f} / {d_:.3f}" for run, (ms_, d_) in runs.items())
+        + f" (eager: the same class steps run eagerly); cold window launches {counts}; {stats}")
     t = time.perf_counter()
     recall, recall_tie, rel = z2o_oracle_check(ix, window[:64], scores, slots, keys, k)
     log(f"1M z2o window against the f64 oracle on 64 queries: recall@{k} {recall!r} "
@@ -2013,10 +2205,15 @@ def phase_z2o_main(card):
         return pz.z2o_query_batch_async(dix, windows[i % 2], TOK, k, fmt="slots")
 
     t1 = time.time()
-    for i in range(4):  # warm-up: plan pools, first launches
-        submit(i).get_arrays()
+    pdev.metrics.reset()
+    disp = []
+    for i in range(4):  # warm-up: plan pools, first launches, class graphs
+        h, ms = submit_timed(lambda: submit(i), "z2o/dispatch")
+        h.get_arrays()
+        disp.append(ms)
     torch.cuda.synchronize()
-    log(f"z2o warm-up (2 passes): {time.time() - t1:.1f} s")
+    log(f"z2o warm-up (2 passes): {time.time() - t1:.1f} s; z2o/dispatch per window (ms, the first "
+        f"two capture) {', '.join(f'{v:.3f}' for v in disp)}; {graph_stats(dix)}")
     for (b_pad, b_out, nj, nc, _fast), route, _jobs, _ql in z2o_window_classes(dix, windows[0], k):
         log(f"z2o class nc={nc:3d} nj={nj:3d} rows={b_out:6d}/{b_pad:6d} route={route}")
 
@@ -2031,14 +2228,31 @@ def phase_z2o_main(card):
         np.testing.assert_array_equal(slots, out[i % 2][1])
     log(f"z2o served 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} ms/window, "
         f"{8 * WINDOW / dt:.1f} QPS; window latency p50 {np.median(lat_ms):.1f} ms "
-        "(host clock, pipeline of 4; for information only)")
-    hist = pdev.metrics.snapshot()["histograms"]
-    log("z2o host phases per window (mean ms, host clock): " + ", ".join(
-        f"{name} {hist[name]['mean_us'] / 1e3:.3f}"
-        for name in ("z2o/plan", "z2o/pack", "z2o/h2d", "z2o/dispatch", "query/fetch", "query/drain")
-        if name in hist
-    ))
+        f"(host clock, pipeline of 4; for information only); {graph_stats(dix)}")
+    z2o_host_phases("z2o host phases per window (mean ms, host clock)")
     profile_windows(submit)
+    with Recorded(dix) as rec:
+        h = submit(0)
+        h.get_arrays()
+    eager_step_check(dix, h, rec.windows[-1], "z2o 50k window")
+    # The class graphs against the same class steps run eagerly, in turns.
+    graphs, eager = dix._class_graphs, EagerClasses(dix.device)
+    turns = {"graphs": [], "eager": []}
+    try:
+        for path in ("eager", "graphs", "graphs", "eager"):
+            dix._class_graphs = graphs if path == "graphs" else eager
+            reset_z2o_counts()
+            dt_, lat_, out_ = serve_pipelined(submit)
+            turns[path].append(1e3 * dt_ / 8)
+            for i, (_s, sl, _k) in enumerate(out_):
+                np.testing.assert_array_equal(sl, out[i][1], err_msg=f"z2o {path}: rows differ")
+            z2o_host_phases(f"z2o {path} turn: {1e3 * dt_ / 8:.3f} ms/window, p50 "
+                            f"{np.median(lat_):.1f} ms; host phases (mean ms)")
+    finally:
+        dix._class_graphs = graphs
+    log(f"z2o 8 pipelined windows a turn on {card}, ms/window: class graphs "
+        f"{', '.join(f'{v:.3f}' for v in turns['graphs'])}, eager "
+        f"{', '.join(f'{v:.3f}' for v in turns['eager'])}; rows equal")
 
     sample = windows[0][:256]
     scores, slots, keys_ = pz.z2o_query_batch_async(dix, sample, TOK, k, fmt="f32").get_arrays()

@@ -14,11 +14,17 @@ after another on the device:
              (full sort)
   trim / pad / pack_result_rows -> one packed result -> one D2H copy
 
-A window packed into a frozen template (``_pack_dispatches_template``) whose
-step ``prewarm`` captured on a CUDA device replays that capture instead: one
-CUDA graph (``WindowGraph``) per template, the port's counterpart of the JAX
-engine's compiled window program.  ``save_templates`` / ``load_templates``
-carry the templates across processes in the JAX engine's manifest format.
+On a CUDA device no window step runs eagerly.  A window packed into a
+frozen template (``_pack_dispatches_template``) whose step ``prewarm``
+captured replays that capture: one CUDA graph (``WindowGraph``) per
+template, the port's counterpart of the JAX engine's compiled window
+program.  Every other window (composed, per-class, per-dispatch, term-range,
+a user's scorer, a template before ``prewarm``; and the zero-to-one window of
+``ops/z2o_device.py``) replays one cached graph per class shape
+(``ClassGraphs``, keyed by ``ClassKey``; captured at first sight), the
+counterpart of the JAX engine's shape-keyed jit caches.  On the CPU the
+plain step runs.  ``save_templates`` / ``load_templates`` carry the
+templates across processes in the JAX engine's manifest format.
 
 Term-range jobs (word 1 bit 30): a query term with at least
 ``IndexConfig.range_min_expansions`` expansions plans as one job per segment
@@ -63,9 +69,10 @@ shard.
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,6 +82,7 @@ from ..models.base import QueryResult
 from ..ops.fused_merge import KEY_BITS, key_bits_for, merge_scores_topk_fused
 from ..ops import fused_merge as _fm
 from ..ops import fused_query as _fq
+from ..ops import fused_z2o as _fz
 from ..ops.fused_query import _kernel_scores, fused_query_topk, gather_score, padded_rows
 from ..ops.merge import INVALID_KEY
 from ..utils.metrics import metrics
@@ -480,10 +488,39 @@ def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
         off += n
 
 
-# The kernel launch counters a BM25 window step can move (plain int dicts of
-# the wrappers).  Capturing a step into a CUDA graph moves them though
-# nothing ran; ``WindowGraph`` takes that back out and adds it on replays.
-_LAUNCH_COUNTERS = (_fq.launches, _fq.chunk_launches, _fm.launches, _fm.path_calls)
+def _launch_counters():
+    """The kernel and program launch counters a window step can move (plain
+    int dicts of the wrappers): K1 / K3 by phase and by chunk width, K5 and
+    its calls by path, K4, and the zero-to-one torch programs.  Capturing a
+    step into a CUDA graph moves them though nothing ran; the graph takes
+    that back out (``_uncounted``) and adds it again on every replay."""
+    from ..ops import z2o_device  # imports this module: not at the top
+
+    return (
+        _fq.launches, _fq.chunk_launches, _fm.launches, _fm.path_calls, _fz.launches,
+        z2o_device.launches,
+    )
+
+
+def _uncounted(capture):
+    """Run ``capture()`` and take back out the launch counts it moved.
+    Returns (its result, [(counter, key, n), ...]) for ``_recount``."""
+    counters = _launch_counters()
+    before = [dict(c) for c in counters]
+    out = capture()
+    delta = []
+    for counts, was in zip(counters, before):
+        for key, n in counts.items():
+            if n != was.get(key, 0):
+                delta.append((counts, key, n - was.get(key, 0)))
+                counts[key] = was.get(key, 0)
+    return out, delta
+
+
+def _recount(delta) -> None:
+    """Add a captured step's launch counts (``_uncounted``) for one replay."""
+    for counts, key, n in delta:
+        counts[key] = counts.get(key, 0) + n
 
 
 class WindowGraph:
@@ -499,17 +536,14 @@ class WindowGraph:
     raises; nothing falls back to the eager step."""
 
     def __init__(self, step, words) -> None:
-        before = [dict(c) for c in _LAUNCH_COUNTERS]
         self.words = words
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="relaxed"):
-            self.packed = step(words)
-        self._delta = []
-        for counts, was in zip(_LAUNCH_COUNTERS, before):
-            for key, n in counts.items():
-                if n != was.get(key, 0):
-                    self._delta.append((counts, key, n - was.get(key, 0)))
-                    counts[key] = was.get(key, 0)
+
+        def capture():
+            with torch.cuda.graph(self.graph, capture_error_mode="relaxed"):
+                return step(words)
+
+        self.packed, self._delta = _uncounted(capture)
         self._lock = threading.Lock()
         metrics.inc("template_graph_captures", 1)
 
@@ -522,10 +556,160 @@ class WindowGraph:
             self.words.copy_(words, non_blocking=True)
             self.graph.replay()
             packed = self.packed.clone()
-        for counts, key, n in self._delta:
-            counts[key] = counts.get(key, 0) + n
+        _recount(self._delta)
         metrics.inc("template_graph_replays", 1)
         return packed
+
+
+class ClassKey(NamedTuple):
+    """Key of a BM25 class graph: every static its capture bakes in.  The
+    JAX engine's ``_get_step`` / ``_get_class_step`` statics (chunk, k,
+    qterm_bits, num_fields, num_chunks, nj, use_ranges; ``b_out`` in place
+    of ``b_pad``: the port computes only a class's first ``b_out`` rows and
+    copies them into a static input, where JAX slices a bucketed buffer at a
+    traced offset) and the scorer's ``device_cache_key`` (its jit cache
+    key), plus the result format (``"parts"``: f32 scores and int32 slots
+    apart) and ``key_bits``.  nc and nj are bucketed (``pack_dispatches``)
+    and ``b_out`` is a multiple of 256 rows or a template capacity, so the
+    keys are bounded as JAX's compile count is."""
+
+    program: str  # "bm25"
+    scorer: Any
+    chunk: int
+    num_chunks: int
+    nj: int
+    b_out: int
+    use_ranges: bool
+    k: int
+    fmt: str
+    qterm_bits: int
+    num_fields: int
+    key_bits: int
+
+
+class ClassGraph:
+    """One shape class's step captured as a CUDA graph.
+
+    ``words`` is the static input: the class's first ``b_out`` job rows,
+    then the window's per-class extras (a BM25 class's F field-boost words,
+    a zero-to-one class's qlen); ``out``, the static output (a tensor or a
+    tuple of them), lives in the pool every class graph of its
+    ``ClassGraphs`` shares.  The step's tensors (``rec``, ``field_avg``, the
+    aux array of range classes), its scorer and its statics are baked in:
+    the key names the statics, and the graph lives on the ``DeviceIndex``
+    whose tensors it reads (``Index.device_index()`` builds a new one on
+    any mutation, so the graphs die with their snapshot).  Holding ``step``
+    holds its scorer, so no other scorer can take the ``('id', id(...))``
+    key of one without ``device_cache_key`` while the graph lives."""
+
+    def __init__(self, step, n_words: int, device, pool, stream) -> None:
+        self.step = step
+        self.words = torch.zeros(n_words, dtype=torch.int32, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(pool=pool, capture_error_mode="relaxed")
+                try:
+                    out = step(self.words)
+                finally:
+                    self.graph.capture_end()
+            return out
+
+        self.out, self._delta = _uncounted(capture)
+
+    def replay(self, pieces):
+        """Copy ``pieces`` (host or device int32 tensors) back to back into
+        the static input, replay, and return the static output."""
+        off = 0
+        for p in pieces:
+            n = p.numel()
+            self.words[off : off + n].copy_(p, non_blocking=True)
+            off += n
+        self.graph.replay()
+        _recount(self._delta)
+        return self.out
+
+
+class ClassGraphs:
+    """The shape-keyed class graphs of one ``DeviceIndex`` on a CUDA device:
+    the counterpart of the JAX engine's program caches ``_get_step``,
+    ``_get_class_step``, ``_get_window_step`` and ``_get_z2o_window_step``.
+    A class's graph is captured the first time its key is seen (counter
+    ``class_graph_captures``) and replayed ever after
+    (``class_graph_replays``); ``pool_bytes`` is the memory the captures
+    reserved.
+
+    Every graph allocates in one shared pool, so a later capture may place
+    its tensors in an earlier graph's freed temporaries: each replay's
+    static output is copied out, in stream order, before the next replay
+    runs, and a window's whole replay-and-copy sequence runs under one lock,
+    behind the previous window's on any stream.  A failed capture or replay
+    raises; nothing falls back to the eager step."""
+
+    def __init__(self, device) -> None:
+        self.device = torch.device(device)
+        self._graphs: Dict[Any, ClassGraph] = {}
+        self._lock = threading.Lock()
+        # Recorded after the last window's copies (a CUDA device's only).
+        self._done = torch.cuda.Event() if self.device.type == "cuda" else None
+        self._pool = self._stream = None
+        self.pool_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def keys(self):
+        return list(self._graphs)
+
+    def run(self, classes, concat: bool = False):
+        """Run a window's classes ``[(key, make_step, pieces), ...]`` in
+        order (``key.b_out`` rows each; ``make_step()`` builds the step that
+        a first sight captures).  ``concat``: each class's one output is
+        written into its rows of one new tensor, which is returned; else a
+        list of private copies of each class's outputs (tuples)."""
+        total = sum(key.b_out for key, _m, _p in classes)
+        with self._lock:
+            if self._done is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(self._done)
+            outs, packed, row = [], None, 0
+            for key, make_step, pieces in classes:
+                out = self._replay(key, make_step, pieces)
+                if not concat:
+                    outs.append(tuple(t.clone() for t in out))
+                    continue
+                if packed is None:
+                    packed = out.new_empty((total, *out.shape[1:]))
+                packed[row : row + key.b_out].copy_(out)
+                row += key.b_out
+            if self._done is not None:
+                self._done.record(stream)
+        return packed if concat else outs
+
+    def _replay(self, key, make_step, pieces):
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = self._capture(make_step(), pieces)
+        metrics.inc("class_graph_replays", 1)
+        return graph.replay(pieces)
+
+    def _capture(self, step, pieces) -> ClassGraph:
+        index = self.device.index if self.device.index is not None else torch.cuda.current_device()
+        if self._pool is None:
+            # Build the kernels and set the shared-memory attributes of every
+            # kernel a class step launches (K1 / K3, K5, K4) before any
+            # capture.
+            _fq.device_smem(index)
+            _fm.device_smem(index)
+            _fz.device_avail(index)
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        before = torch.cuda.memory_reserved(index)
+        graph = ClassGraph(step, sum(p.numel() for p in pieces), self.device, self._pool, self._stream)
+        self.pool_bytes += torch.cuda.memory_reserved(index) - before
+        metrics.inc("class_graph_captures", 1)
+        return graph
 
 
 class DeviceIndex:
@@ -672,6 +856,8 @@ class DeviceIndex:
         # Window steps captured by prewarm on a CUDA device, by template key;
         # a refreeze or a load of the key drops its graph (stale layout).
         self._graphs: Dict[Any, WindowGraph] = {}
+        # Every other window step on a CUDA device: its classes' graphs.
+        self._class_graphs = ClassGraphs(self.device) if self.device.type == "cuda" else None
 
     def _aux_rec(self, scorer):
         """Aux record array int32[4, P + C] of term-range jobs, built on the
@@ -1514,6 +1700,45 @@ class DeviceIndex:
 
         return step
 
+    def _graph_classes(self, scorer, k: int, fmt: str, class_specs, words_flat, aux=None):
+        """A window's classes as ``ClassGraphs.run`` takes them: per class
+        its ``ClassKey``, its step's maker (``_class_step``) and the pieces of
+        its static input (its first ``b_out`` job rows in ``words_flat``,
+        then the window's F field-boost words).  ``fmt`` is a result format
+        or ``"parts"``."""
+        F = self.num_fields
+        n_words = words_flat.numel() - F
+        boost = words_flat[n_words:]
+        skey = _scorer_cache_key(scorer)
+        classes, off = [], 0
+        for b_pad, b_out, nj, nc, rng, cw in class_specs:
+            key = ClassKey(
+                "bm25", skey, cw, nc, nj, b_out, rng, k, fmt, self._qterm_bits, F, self._key_bits
+            )
+            make = functools.partial(self._class_step, scorer, key, aux if rng else None)
+            classes.append((key, make, (words_flat[off : off + b_out * nj * 3], boost)))
+            off += b_pad * nj * 3
+        return classes
+
+    def _class_step(self, scorer, key: ClassKey, aux):
+        """The step of the class ``key`` as a function of its static input:
+        its packed rows (``key.fmt``), or its f32 scores and int32 slots
+        (``"parts"``), padded to k."""
+
+        def step(words):
+            n = key.b_out * key.nj * 3
+            s, d = _query_step(
+                scorer, self.rec, self.field_avg, words[n:].view(torch.float32),
+                words[:n].view(key.b_out, key.nj * 3), aux, chunk=key.chunk,
+                k=min(key.k, key.num_chunks * key.chunk), qterm_bits=key.qterm_bits,
+                num_fields=key.num_fields, num_chunks=key.num_chunks,
+                use_ranges=key.use_ranges, key_bits=key.key_bits,
+            )
+            s, d = _pad_k(s, d, key.k)
+            return (s, d) if key.fmt == "parts" else pack_result_rows(s, d, key.fmt)
+
+        return step
+
     def prune(self, plan: Optional[PlannedJobs], scorer, k: int, fields_boost):
         """Block-max safe top-k pruning of a window's plan (``index/prune.py``,
         timer ``query/prune``) when ``prune_blocks`` is set and the scorer's
@@ -1528,18 +1753,14 @@ class DeviceIndex:
 
     def _pinned(self, words: np.ndarray):
         """The window's int32 words in pinned host memory (on the CPU: a
-        plain view)."""
+        plain view).  On a CUDA device each graph copies its slices into its
+        static input as it replays: those are the window's H2D copies."""
         t = torch.from_numpy(words)
         if self.device.type == "cpu":
             return t
         pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         pinned.copy_(t)
         return pinned
-
-    def _upload(self, words: np.ndarray):
-        """One H2D copy of the window's int32 words, through pinned memory
-        and without blocking the host."""
-        return self._pinned(words).to(self.device, non_blocking=True)
 
     def query_batch_async(
         self,
@@ -1692,9 +1913,7 @@ class DeviceIndex:
                 [d[1].reshape(-1) for d in dispatches]
                 + [np.asarray(fields_boost, dtype=np.float32).view(np.int32)]
             )
-            # A captured template copies the pinned words into its graph's
-            # static input as it replays.
-            words_flat = self._pinned(words_np) if graph is not None else self._upload(words_np)
+            words_flat = self._pinned(words_np)
         aux = self._aux_rec(scorer) if any(spec[4] for spec in class_specs) else None
         if parts:
             return self._dispatch_parts(
@@ -1704,13 +1923,14 @@ class DeviceIndex:
         with metrics.timer("query/dispatch"):
             if graph is not None:
                 packed = graph.run(words_flat)
+            elif self._class_graphs is not None:
+                # One cached graph per class shape, as the JAX engine's
+                # per-class programs: per-class dispatch differs from the
+                # composed window only in taking no template.
+                packed = self._class_graphs.run(
+                    self._graph_classes(scorer, k, fmt, class_specs, words_flat, aux), concat=True
+                )
             else:
-                # Per-class dispatch runs this same step: the JAX engine's
-                # per-class programs (each class's b_pad rows, a pow2-padded
-                # words buffer, a traced class offset) exist only so that
-                # its compiled programs are keyed on the class shape alone.
-                # The port compiles nothing per window, so the mode differs
-                # from the composed window only in taking no template.
                 packed = self._step(scorer, k, fmt, class_specs, aux)(words_flat)
         layout = []
         row = 0
@@ -1735,12 +1955,17 @@ class DeviceIndex:
         its scores are f32 under every format, as in the JAX engine."""
         n_words = words_flat.numel() - self.num_fields
         with metrics.timer("query/dispatch"):
-            outs = _class_outputs(
-                scorer, self.rec, self.field_avg, words_flat[n_words:].view(torch.float32),
-                words_flat[:n_words], aux, k=k, qterm_bits=self._qterm_bits,
-                num_fields=self.num_fields, class_specs=class_specs, key_bits=self._key_bits,
-            )
-            parts = [(idxs, *_pad_k(s, d, k)) for (idxs, *_d), (s, d) in zip(dispatches, outs)]
+            if self._class_graphs is not None:
+                outs = self._class_graphs.run(
+                    self._graph_classes(scorer, k, "parts", class_specs, words_flat, aux)
+                )
+            else:
+                outs = [_pad_k(s, d, k) for s, d in _class_outputs(
+                    scorer, self.rec, self.field_avg, words_flat[n_words:].view(torch.float32),
+                    words_flat[:n_words], aux, k=k, qterm_bits=self._qterm_bits,
+                    num_fields=self.num_fields, class_specs=class_specs, key_bits=self._key_bits,
+                )]
+            parts = [(idxs, s, d) for (idxs, *_d), (s, d) in zip(dispatches, outs)]
         event = None
         if self.device.type == "cuda" and self.config.prefetch_results:
             parts = [(idxs, _to_pinned(s), _to_pinned(d)) for idxs, s, d in parts]

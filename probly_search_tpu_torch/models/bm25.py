@@ -56,12 +56,16 @@ def bm25_score_lanes(lanes, bm25k1: float, bm25b: float):
     ``field_length`` f32[B, NC, F, C] and a per-lane ``scale``; the operation
     order is that of the JAX scorer, so the two differ only by f32 rounding
     of the field sum.  Returns f32[B, NC, C]."""
+    import numpy as np
+
     tf = lanes.tf
-    k1 = torch.tensor(bm25k1, dtype=tf.dtype, device=tf.device)
-    b = torch.tensor(bm25b, dtype=tf.dtype, device=tf.device)
+    # The constants rounded to f32 as f32 tensors would hold them, but kept
+    # Python scalars: a tensor made from a host value is a host-to-device
+    # copy, which a CUDA graph capture refuses.
+    k1, b = np.float32(bm25k1), np.float32(bm25b)
     avg = lanes.field_avg[:, None]  # [F, 1]
-    denom = k1 * ((1.0 - b) + b * (lanes.field_length / avg)) + tf
-    tf_norm = torch.where(tf > 0, ((k1 + 1.0) * tf) / denom, 0.0)
+    denom = float(k1) * (float(np.float32(1.0) - b) + float(b) * (lanes.field_length / avg)) + tf
+    tf_norm = torch.where(tf > 0, (float(k1 + np.float32(1.0)) * tf) / denom, 0.0)
     per_field = tf_norm * lanes.fields_boost[:, None]
     return per_field.sum(dim=-2) * lanes.scale
 

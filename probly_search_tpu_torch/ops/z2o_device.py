@@ -19,11 +19,18 @@ routes every query to one of three device programs:
 * queries past the programs' caps run the vectorized host lockstep
   (``models/zero_to_one.vectorized_query``).
 
-``launches`` counts the torch programs' runs on a CUDA device (never on the
-CPU), beside ``fused_z2o.launches`` for the kernel.
+On a CUDA device each class of a window replays a cached CUDA graph of its
+program (``_graph_classes``, ``Z2OClassKey``; ``index.device.ClassGraphs``),
+the lockstep program's loop of NJ steps captured whole; on the CPU the plain
+``_z2o_window_step`` runs.  ``launches`` counts the torch programs' runs on a
+CUDA device (never on the CPU), replays included, beside
+``fused_z2o.launches`` for the kernel.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +41,7 @@ from ..index.device import (
     _bucket,
     _bucket_vec,
     _host_fallback_policy,
+    _pad_k,
     _segment_arange,
     chunk_tables,
     pack_result_rows,
@@ -542,6 +550,22 @@ def pack_classes(dix, B, jquery, words, qlen, nc_bucket, njobs, fastq, srank):
     return class_specs, layout, word_parts, qlen_parts
 
 
+def _z2o_class_rows(
+    rec, jobs, ql, *, chunk: int, k: int, num_fields: int, num_chunks: int, fast: bool,
+    fused_ok: bool, fmt: str, key_bits: int,
+):
+    """One z2o shape class: ``jobs`` int32[b_out, NJ, 4] and ``ql``
+    f32[b_out] -> its packed rows, padded to k (the fast program or the
+    lockstep program)."""
+    kw = dict(chunk=chunk, k=min(k, num_chunks * chunk * num_fields), num_fields=num_fields,
+              num_chunks=num_chunks)
+    if fast:
+        s, d = z2o_fast_step(rec, jobs, ql, fused_ok=fused_ok, key_bits=key_bits, **kw)
+    else:
+        s, d = z2o_step(rec, jobs, ql, **kw)
+    return pack_result_rows(*_pad_k(s, d, k), fmt)
+
+
 def _z2o_window_step(
     rec, words_flat, qlen_flat, *, chunk: int, k: int, num_fields: int, class_specs,
     fused_ok: bool = True, fmt: str = "f32", key_bits: int = 31,
@@ -559,17 +583,66 @@ def _z2o_window_step(
         off += n
         ql = qlen_flat[qoff : qoff + b_out]
         qoff += b_pad
-        kk = min(k, nc * chunk * num_fields)
-        kw = dict(chunk=chunk, k=kk, num_fields=num_fields, num_chunks=nc)
-        if fast:
-            s, d = z2o_fast_step(rec, jobs, ql, fused_ok=fused_ok, key_bits=key_bits, **kw)
-        else:
-            s, d = z2o_step(rec, jobs, ql, **kw)
-        if s.shape[1] < k:
-            s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=float("-inf"))
-            d = torch.nn.functional.pad(d, (0, k - d.shape[1]), value=-1)
-        outs.append(pack_result_rows(s, d, fmt))
+        outs.append(_z2o_class_rows(
+            rec, jobs, ql, chunk=chunk, k=k, num_fields=num_fields, num_chunks=nc, fast=fast,
+            fused_ok=fused_ok, fmt=fmt, key_bits=key_bits,
+        ))
     return torch.cat(outs, dim=0)
+
+
+class Z2OClassKey(NamedTuple):
+    """Key of a zero-to-one class graph: every static its capture bakes in.
+    The JAX engine's ``_get_z2o_window_step`` statics for one class (its
+    class spec with ``b_out`` in place of ``b_pad``, chunk, k, num_fields,
+    fused_ok, fmt; the port has no fused mode: ``fused_route`` follows from
+    the others), the class's top-k width ``kk`` and K4's ``key_bits``."""
+
+    program: str  # "z2o"
+    b_out: int
+    nj: int
+    num_chunks: int
+    fast: bool
+    kk: int
+    num_fields: int
+    chunk: int
+    fused_ok: bool
+    key_bits: int
+    k: int
+    fmt: str
+
+
+def _graph_classes(
+    dix, buf, n_words: int, class_specs, *, k: int, fmt: str, fused_ok: bool, key_bits: int
+):
+    """A z2o window's classes as ``index.device.ClassGraphs.run`` takes
+    them: per class its ``Z2OClassKey``, its step's maker and the pieces of
+    its static input (its first ``b_out`` job rows in ``buf``, then its
+    ``b_out`` qlen words from ``buf[n_words:]``)."""
+    C, F = dix.CHUNK, dix.num_fields
+    classes, off, qoff = [], 0, n_words
+    for b_pad, b_out, nj, nc, fast in class_specs:
+        key = Z2OClassKey(
+            "z2o", b_out, nj, nc, bool(fast), min(k, nc * C * F), F, C, fused_ok, key_bits, k, fmt
+        )
+        pieces = (buf[off : off + b_out * nj * 4], buf[qoff : qoff + b_out])
+        classes.append((key, functools.partial(_class_step, dix.rec, key), pieces))
+        off += b_pad * nj * 4
+        qoff += b_pad
+    return classes
+
+
+def _class_step(rec, key: Z2OClassKey):
+    """The step of the z2o class ``key`` as a function of its static input."""
+
+    def step(words):
+        n = key.b_out * key.nj * 4
+        return _z2o_class_rows(
+            rec, words[:n].view(key.b_out, key.nj, 4), words[n:].view(torch.float32),
+            chunk=key.chunk, k=key.k, num_fields=key.num_fields, num_chunks=key.num_chunks,
+            fast=key.fast, fused_ok=key.fused_ok, fmt=key.fmt, key_bits=key.key_bits,
+        )
+
+    return step
 
 
 def z2o_query_batch(dix, queries, tokenizer, top_k, scorer=None):
@@ -666,22 +739,23 @@ def z2o_query_batch_async(dix, queries, tokenizer, top_k, scorer=None, fmt=None)
     if not class_specs:
         return PendingBatch(dix, B, host_rows=host_rows, k=k)
     with metrics.timer("z2o/h2d"):
-        # The qlen vectors ride at the end of the one H2D buffer.
+        # The qlen vectors ride at the end of the window's words.
         n_words = sum(len(w) for w in word_parts)
-        buf = dix._upload(np.concatenate(word_parts + [np.concatenate(qlen_parts).view(np.int32)]))
+        buf = dix._pinned(np.concatenate(word_parts + [np.concatenate(qlen_parts).view(np.int32)]))
+    kw = dict(k=k, fmt=fmt, fused_ok=dix.num_slots < (1 << 26),
+              key_bits=key_bits_for(dix.num_slots, DOC_SHIFT))
     with metrics.timer("z2o/dispatch"):
-        packed = _z2o_window_step(
-            dix.rec,
-            buf[:n_words],
-            buf[n_words:].view(torch.float32),
-            chunk=dix.CHUNK,
-            k=k,
-            num_fields=dix.num_fields,
-            class_specs=tuple(class_specs),
-            fused_ok=dix.num_slots < (1 << 26),
-            fmt=fmt,
-            key_bits=key_bits_for(dix.num_slots, DOC_SHIFT),
-        )
+        if dix._class_graphs is not None:
+            # On the card: one cached graph per class shape (the JAX
+            # engine's compiled window program, keyed per class).
+            packed = dix._class_graphs.run(
+                _graph_classes(dix, buf, n_words, class_specs, **kw), concat=True
+            )
+        else:
+            packed = _z2o_window_step(
+                dix.rec, buf[:n_words], buf[n_words:].view(torch.float32), chunk=dix.CHUNK,
+                num_fields=dix.num_fields, class_specs=tuple(class_specs), **kw,
+            )
     return PendingBatch(
         dix, B, packed=packed, layout=layout, host_rows=host_rows, fmt=fmt, k=k,
         **dix._start_fetch(packed),

@@ -585,3 +585,173 @@ def test_sharded_window_on_cuda_matches_single_device(data, docs):
     dix = pdev.DeviceIndex(ix, device="cuda")
     want = pz.z2o_query_batch_async(dix, z2o_window, pdev.whitespace_tokenizer, 10, fmt="f32").get_arrays()
     assert_topk_agree(got[0], got[1], want[0], want[1])
+
+
+def _launch_counts():
+    return [dict(c) for c in pdev._launch_counters()]
+
+
+def _serve_counted(dix, window, scorer, **kw):
+    """One window's arrays and the launch counts it moved, per counter."""
+    before = _launch_counts()
+    out = dix.query_batch_async(window, scorer, **kw).get_arrays()
+    torch.cuda.synchronize()
+    moved = [{key: n - was.get(key, 0) for key, n in c.items() if n != was.get(key, 0)}
+             for c, was in zip(pdev._launch_counters(), before)]
+    return out, moved
+
+
+def _class_graph_corpus():
+    """Two fields, chunk 128, a latent delete: K1 classes, a class past
+    16,384 lanes (K3 + K5), term-range classes (range_min_expansions 4),
+    shared-node zero-to-one queries (the lockstep program) and fast classes
+    past K4's 8,192 lanes (the staged program)."""
+    import random
+
+    from probly_search_tpu_torch import Index, IndexConfig
+
+    rng = random.Random(12)
+    vocab = ["aa" + "".join(rng.choice("bcde") for _ in range(j % 3 + 1)) for j in range(30)]
+    vocab += ["".join(rng.choice("fghij") for _ in range(rng.randint(2, 4))) for _ in range(60)]
+    n = 20_000
+    ix = Index(2, config=IndexConfig(chunk_size=128, range_min_expansions=4, result_format="f32"))
+    texts = [[("common " if i % 10 else "") + " ".join(rng.sample(vocab, 3)) for i in range(n)],
+             [" ".join(rng.sample(vocab, 2)) + (" common" if i % 7 == 0 else "") for i in range(n)]]
+    ix.add_documents_columnar(list(range(n)), texts)
+    ix.remove_document(17)
+    window = [" ".join(rng.sample(vocab, rng.randint(1, 3))) for _ in range(300)]
+    window += ["common", "common " + vocab[40], "aa", "aab " + vocab[41], "", "zzz"]
+    return ix, window, vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["composed", "per_class", "per_dispatch", "range", "tfboost"])
+def test_class_graphs_match_eager_on_cuda(mode):
+    """Windows without a frozen template replay cached class graphs: rows
+    bit-equal (f32 scores and slots) to the same class steps run eagerly
+    (``EagerClasses``), and every launch counter moved as the eager window
+    moves it, on the capturing window and on a replayed one; the second
+    window captures nothing."""
+    _cuda()
+    import dataclasses
+
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    from .torch_util import EagerClasses, TfBoost
+
+    ix, window, _vocab = _class_graph_corpus()
+    cfg = {"composed": dict(template_compositions=False),
+           "per_class": dict(per_class_dispatch=True),
+           "per_dispatch": dict(single_dispatch_windows=False),
+           "range": dict(), "tfboost": dict()}[mode]
+    scorer = TfBoost() if mode == "tfboost" else bm25.new()
+    if mode != "range":
+        window = [q for q in window if not q.startswith("aa")]
+    graphs, eager = pdev.DeviceIndex(ix, device="cuda"), pdev.DeviceIndex(ix, device="cuda")
+    eager._class_graphs = EagerClasses(eager.device)
+    for d in (graphs, eager):
+        d.config = dataclasses.replace(ix.config, **cfg)
+    want, want_moved = _serve_counted(eager, window, scorer, top_k=10)
+    metrics.reset()
+    for turn in range(2):
+        got, moved = _serve_counted(graphs, window, scorer, top_k=10)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert moved == want_moved, (turn, moved, want_moved)
+        ctr = metrics.counters
+        assert ctr["class_graph_captures"] == len(graphs._class_graphs) > 0
+        assert ctr["class_graph_replays"] == (turn + 1) * len(eager._class_graphs.windows[0])
+    assert set(graphs._class_graphs.keys()) == set(eager._class_graphs.keys())
+    assert any(want_moved), want_moved
+    if mode == "range":
+        assert any(k.use_ranges for k in graphs._class_graphs.keys())
+        assert want_moved[2].get("merge_topk")
+    if mode == "tfboost":
+        assert not want_moved[0] and want_moved[2].get("merge_topk")
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    cpu.config = graphs.config
+    c = cpu.query_batch_async(window, scorer, top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
+
+
+@pytest.mark.cuda
+def test_z2o_class_graphs_match_eager_on_cuda():
+    """A zero-to-one window with K4 classes, staged classes (fast classes
+    past 8,192 lanes) and lockstep classes, replayed from class graphs:
+    packed rows bit-equal to the eager class steps, K4's and both torch
+    programs' launch counts equal to the eager window's."""
+    _cuda()
+    from probly_search_tpu_torch.ops import z2o_device as pz
+
+    from .torch_util import EagerClasses
+
+    ix, window, vocab = _class_graph_corpus()
+    window = [q for q in window if not q.startswith("aa")] + [f"{t} {t}" for t in vocab[30:36]]
+    graphs, eager = pdev.DeviceIndex(ix, device="cuda"), pdev.DeviceIndex(ix, device="cuda")
+    eager._class_graphs = EagerClasses(eager.device)
+    want, want_moved = _serve_counted(eager, window, zero_to_one.new(), top_k=10)
+    assert want_moved[4].get("fused_z2o") and want_moved[5].get("z2o_staged") \
+        and want_moved[5].get("z2o_lockstep"), want_moved
+    for _turn in range(2):
+        got, moved = _serve_counted(graphs, window, zero_to_one.new(), top_k=10)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert moved == want_moved
+    assert {type(k) for k in graphs._class_graphs.keys()} == {pz.Z2OClassKey}
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    c = cpu.query_batch_async(window, zero_to_one.new(), top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
+
+
+@pytest.mark.cuda
+def test_class_graphs_capture_only_new_keys_on_cuda():
+    """A second window of another composition (half the first window's
+    queries, plus queries of a new class shape) captures only the keys the
+    first window did not, and replays the rest."""
+    _cuda()
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix, window, vocab = _class_graph_corpus()
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    dix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    first = set(dix._class_graphs.keys())
+    second = window[::2] + [" ".join(vocab[30:45])]
+    metrics.reset()
+    got = dix.query_batch_async(second, bm25.new(), top_k=10).get_arrays()
+    new = set(dix._class_graphs.keys()) - first
+    assert new and metrics.counters["class_graph_captures"] == len(new)
+    cpu = pdev.DeviceIndex(ix, device="cpu").query_batch_async(second, bm25.new(), top_k=10)
+    c = cpu.get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
+
+
+@pytest.mark.cuda
+def test_class_graphs_replay_out_of_capture_order_on_cuda():
+    """The shared pool: a window's classes (range classes with K5's
+    scratch, a K3 + K5 class, K1 classes; several classes share a key, so
+    one graph replays more than once a window) captured in one order and
+    replayed in the reverse order, twice, each class's rows equal to its
+    eager step's: no replay clobbers an output copied out before it."""
+    _cuda()
+    from probly_search_tpu_torch.index.device import composed_class_specs
+
+    ix, window, _vocab = _class_graph_corpus()
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    plan, _fb = dix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
+    dispatches = dix.pack_dispatches(len(window), plan)
+    specs = composed_class_specs(dispatches)
+    assert any(s[4] for s in specs) and any(s[3] * s[5] > pdev._FUSED_MAX_LANES for s in specs)
+    words = np.concatenate([d[1].reshape(-1) for d in dispatches] + [np.ones(2, np.float32).view(np.int32)])
+    classes = dix._graph_classes(bm25.new(), 10, "parts", specs, dix._pinned(words),
+                                 dix._aux_rec(bm25.new()))
+    want = [tuple(t.clone() for t in make()(torch.cat([p.cuda() for p in pieces])))
+            for _key, make, pieces in classes]
+    first = dix._class_graphs.run(classes)
+    for turn in range(2):
+        got = dix._class_graphs.run(classes[::-1])[::-1]
+        torch.cuda.synchronize()
+        for (s, d), (ws, wd), (fs, fd) in zip(got, want, first):
+            assert torch.equal(s, ws) and torch.equal(d, wd), turn
+            assert torch.equal(s, fs) and torch.equal(d, fd), turn
+    assert len(dix._class_graphs) == len({key for key, _m, _p in classes}) < len(classes)
+    assert dix._class_graphs.pool_bytes > 0

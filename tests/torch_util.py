@@ -4,6 +4,7 @@
 import numpy as np
 import torch
 
+from probly_search_tpu_torch.index.device import ClassGraphs
 from probly_search_tpu_torch.models.base import BaseScoreCalculator
 
 QB = 4  # qterm bits of the merge key
@@ -30,6 +31,27 @@ class TfBoost(BaseScoreCalculator):
     def device_score_lanes(self, lanes):
         per_field = lanes.tf * lanes.fields_boost[:, None]
         return per_field.sum(dim=-2) * lanes.scale  # scale is per chunk or per lane
+
+
+class EagerClasses(ClassGraphs):
+    """``ClassGraphs`` with each class's step run eagerly, not captured and
+    replayed.  Set as a DeviceIndex's ``_class_graphs``, it drives the
+    class-graph path (keys, static inputs, steps, copies out) on any device,
+    the CPU included; on the card it is the eager baseline the graphs are
+    held against and timed beside.  ``windows`` lists each run's keys."""
+
+    def __init__(self, device) -> None:
+        super().__init__(device)
+        self.windows = []
+
+    def run(self, classes, concat: bool = False):
+        self.windows.append([key for key, _make, _pieces in classes])
+        return super().run(classes, concat)
+
+    def _replay(self, key, make_step, pieces):
+        self._graphs[key] = None
+        words = torch.cat([p.to(self.device, non_blocking=True) for p in pieces])
+        return make_step()(words)
 
 
 def make_rec(rng, F=1, n_docs=400, n_terms=120, C=128):
