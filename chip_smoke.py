@@ -106,24 +106,32 @@ Phases (any failure raises, so the exit code is not 0):
      z2o/dispatch, captures, keys, pool bytes, the warm window bit-equal to
      the eager step); the rows held against the f64 oracle on 64 queries;
   3s. the doc-sharded engine (parallel/) on that index: 4 doc shards on one
-     card (make_mesh(1, 4, devices=["cuda:0"] * 4)); the sharded snapshot's
-     build seconds and bytes on the card; 8 pipelined windows of phase 3
-     (depth 4, paired late drains) in turns single-device, sharded,
-     sharded, single-device (ms/window, QPS, p50, the sharded/* host
-     phases, launches); both windows in f32 against the single-device
-     engine by the testing rule, the served slots20 slots equal to them,
-     recall@10 against the f64 oracle on 256 queries; a head-term window
-     (the 16 most frequent terms: classes past 16,384 lanes a shard, K3 +
-     K5) against the single-device engine; 3r's range window cold and warm,
-     its range queries against 3r's f64 vectorized host rows, 0 host rows;
-     3p's single mix with the trim on and off (chunks trimmed a window,
-     slots bit-equal); every class of shard 0 of the first window, of the
-     head window and of the range window, and the widest class of each
-     other shard, held kernel against plain at that shard's key_bits (K1;
-     K3 + K5; the range classes' K5); device busy of one sharded window
-     and one single-device window under torch.profiler; on a host with
-     several cards also a mesh over distinct cards (else logged as not
-     run);
+     card (make_mesh(1, 4, devices=["cuda:0"] * 4)), every window on the
+     card's class graphs (one graph a class shape for the group of the 4
+     shards); the sharded snapshot's build seconds and bytes on the card;
+     a warm-up of 2 passes (sharded/dispatch per window: the first two
+     capture; captures, replays, keys and pool bytes per device); 8
+     pipelined windows of phase 3 (depth 4, paired late drains) in turns
+     single-device, sharded class graphs, sharded eager (the same group
+     steps run eagerly: EagerClasses per device), eager, graphs,
+     single-device (ms/window, QPS, p50, the sharded/* host phases,
+     launches, equal in every sharded turn); a window's served rows
+     bit-equal to the eager cells (no caches) on the same words; both
+     windows in f32 against the single-device engine by the testing rule,
+     the served slots20 slots equal to them, recall@10 against the f64
+     oracle on 256 queries; a head-term window (the 16 most frequent
+     terms: classes past 16,384 lanes a shard, K3 + K5) against the
+     single-device engine; 3r's range window cold, warm, eager and warm
+     again (ms, sharded/dispatch, launches equal), bit-equal to the eager
+     cells, its range queries against 3r's f64 vectorized host rows, 0
+     host rows; 3p's single mix with the trim on and off (chunks trimmed
+     a window, slots bit-equal); every class of shard 0 of the first
+     window, of the head window and of the range window, and the widest
+     class of each other shard, held kernel against plain at that shard's
+     key_bits (K1; K3 + K5; the range classes' K5); device busy of one
+     sharded window on the class graphs, one eager and one single-device
+     window under torch.profiler; on a host with several cards also a
+     mesh over distinct cards (else logged as not run);
   4. the zero-to-one main path at the repo's zero_to_one_50k configuration
      (benchmarks/zero_to_one_50k.py: 50,000 docs, a 3-token title and an
      8-token body, Zipf(1.05) over 4,000 terms, seed 7; 2-term queries with
@@ -138,13 +146,22 @@ Phases (any failure raises, so the exit code is not 0):
      tables (CUDA-event and device times), and a torch.profiler breakdown
      of one window;
   4s. that configuration on the doc-sharded engine, mesh (2, 2) on one card
-     (the data axis splits each window): two 16,384-query windows timed,
-     slots equal to the single-device engine's, tie-aware recall@10
-     against the f64 oracle on 256 queries, and K4 held against plain on
-     every K4 class of shard 0 at that shard's key_bits.
-Every single-device window without a frozen template's CUDA graph replays
-cached class graphs (index/device.py ClassGraphs); "eager" turns swap in
-tests/torch_util.EagerClasses, which runs the same class steps eagerly.
+     (the data axis splits each window; both rows share the card's class
+     graphs): a warm-up of 2 passes (sharded/dispatch per window, cold and
+     warm; captures, replays, keys, pool bytes), two 16,384-query windows
+     timed, class graphs and eager in turns (8 pipelined windows a turn:
+     ms/window, sharded/dispatch, launches equal), a window bit-equal to
+     the eager cells on the same words, the planner alone with Python's
+     garbage collector on and off, device busy of one window on each
+     path (torch.profiler), slots equal to the single-device engine's,
+     tie-aware recall@10 against the f64 oracle on 256 queries, and K4
+     held against plain on every K4 class of shard 0 at that shard's
+     key_bits.
+Every window without a frozen template's CUDA graph replays cached class
+graphs (index/device.py ClassGraphs; the sharded engine's, one cache a
+device, parallel/dist_query.py); "eager" turns swap in
+tests/torch_util.EagerClasses, which runs the same class steps eagerly, as
+a baseline: the kernels line's launches count the graph runs only.
 The line before the last is the kernels' JSON record (K1 a second time at
 chunk 256, its launches those of 3l's light windows); the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits
@@ -153,7 +170,9 @@ with an error before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1574,7 +1593,8 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     """Term-range jobs at full size (phase 3r); adds K5's checks on the
     window's range classes to ``errs`` / ``times``.  The window is served
     cold (class graphs captured), warm, eagerly (``EagerClasses``) and warm
-    again.  Returns K5's launches over those four windows."""
+    again.  Returns K5's launches over the three graph runs (the eager run
+    is the baseline, not the main path)."""
     import dataclasses
 
     k = 10
@@ -1597,6 +1617,7 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
             for key in fm.path_calls:
                 fm.path_calls[key] = 0
             before = pdev.metrics.snapshot()["counters"]
+            k5_before = fm.launches["merge_topk"]
             with Recorded(dix) as rec:
                 t = time.perf_counter()
                 h, disp[run] = submit_timed(lambda: dix.query_batch_async(w, scorer, top_k=k),
@@ -1608,6 +1629,8 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
             stats[run] = {name: int(after.get(name, 0) - before.get(name, 0))
                           for name in ("class_graph_captures", "class_graph_replays")}
             outs[run] = slots
+            if run == "eager":
+                eager_k5 = fm.launches["merge_topk"] - k5_before
             if run == "warm":
                 path_calls = dict(fm.path_calls)
                 classes = rec.windows[-1]
@@ -1640,7 +1663,8 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
     log(f"3r classes of the warm window by route (dispatches, rows): {routes}; heavy-cache "
         f"hits {int(ctr.get('heavy_cache_hits', 0))}, misses {int(ctr.get('heavy_cache_misses', 0))}; "
         f"host rows {int(ctr.get('device_fallback_queries', 0))} ({len(range_host)} of range queries)")
-    log(f"3r launches over the four runs: {counts}")
+    log(f"3r launches over the four runs: {counts}; K5's of the eager run {eager_k5} (left out of "
+        f"the kernels line)")
     q = np.percentile(lanes, [0, 10, 25, 50, 75, 90, 100]).astype(int).tolist()
     log(f"3r K5 L over the warm window's {len(lanes)} calls: percentiles 0/10/25/50/75/90/100 "
         f"{q}; L <= {fm.TILE_LANES}: {sum(L <= fm.TILE_LANES for L in lanes)}, <= 32768: "
@@ -1726,7 +1750,7 @@ def phase_ranges(ix, dix, window, scorer, errs, times):
                           key_bits=dix._key_bits, launches=True)[0]
         errs["merge_topk"] = max(errs["merge_topk"], err)
         del key, score
-    return counts["merge_topk"]
+    return counts["merge_topk"] - eager_k5
 
 
 # --------------------------------------------------------------------- #
@@ -1819,6 +1843,71 @@ def sharded_host_phases():
     )
 
 
+def sharded_graph_stats(sdix):
+    """The class-graph counters since the last metrics reset, and each
+    device's cache of ``sdix``: keys captured so far and its pool's bytes."""
+    c = pdev.metrics.snapshot()["counters"]
+    per_dev = "; ".join(
+        f"{dev}: {len(g)} keys, pool {g.pool_bytes} B ({g.pool_bytes / 2**20:.1f} MiB)"
+        for dev, g in sdix._class_graphs.items()
+    )
+    return (f"class graphs {int(c.get('class_graph_captures', 0))} captured, "
+            f"{int(c.get('class_graph_replays', 0))} replayed; {per_dev}")
+
+
+class ShardedEager:
+    """Within the block, ``sdix`` runs its group steps eagerly
+    (``EagerClasses`` for each device of its mesh): the eager baseline."""
+
+    def __init__(self, sdix):
+        self.sdix = sdix
+
+    def __enter__(self):
+        self.graphs = self.sdix._class_graphs
+        self.sdix._class_graphs = {dev: EagerClasses(dev) for dev in self.graphs}
+        return self
+
+    def __exit__(self, *exc):
+        self.sdix._class_graphs = self.graphs
+
+
+def sharded_eager_check(sdix, submit, label):
+    """One window served (``submit()``) against the eager cells (the
+    sharded engine with no caches) called directly on the same words:
+    every dispatch's packed rows bit-equal.  The launches of the eager
+    step are taken back out."""
+    calls = []
+    for name in ("_bm25_step", "_z2o_step"):
+        real = getattr(sdix, name)
+
+        def spy(*args, _real=real, _name=name):
+            rows = _real(*args)
+            calls.append((_name, args, rows))
+            return rows
+
+        setattr(sdix, name, spy)
+    try:
+        submit().get_arrays()
+    finally:
+        del sdix._bm25_step, sdix._z2o_step
+    saved = [dict(c) for c in pdev._launch_counters()]
+    graphs, sdix._class_graphs = sdix._class_graphs, None
+    try:
+        for name, args, rows in calls:
+            want = getattr(sdix, name)(*args)
+            torch.cuda.synchronize()
+            assert len(rows) == len(want), (label, name)
+            for a, b in zip(rows, want):
+                assert torch.equal(a.cpu(), b.cpu()), f"{label}: served rows differ from the eager step"
+    finally:
+        sdix._class_graphs = graphs
+        for counts, was in zip(pdev._launch_counters(), saved):
+            counts.clear()
+            counts.update(was)
+    log(f"{label}: served rows bit-equal to the eager cells on the same words ({len(calls)} "
+        f"dispatches, {sum(len(r) for _n, _a, r in calls)} data rows)")
+
+
 def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
     """Phase 3s: the doc-sharded engine on 4 doc shards of one card (see the
     module docstring).  Returns the launch counts of its served windows."""
@@ -1843,33 +1932,59 @@ def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
         f"local slots {sdix.local_slots}, key_bits per shard {sdix.key_bits}, rec per shard "
         f"{[tuple(r.shape) for r in sdix.rec]}")
     assert sdix.key_bits[0] <= dix._key_bits - 2
+    assert list(sdix._class_graphs) == [torch.device("cuda", 0)] and len(sdix._groups[0]) == 1
     t = time.perf_counter()
-    for _ in range(2):  # warm-up: the plan pool and the trim's bounds
+    pdev.metrics.reset()
+    disp = []
+    for _ in range(2):  # warm-up: the plan pool, the trim's bounds, the class graphs
         for w in windows:
-            sdix.query_batch_async(w, scorer, top_k=k).get_arrays()
+            h, ms = submit_timed(lambda: sdix.query_batch_async(w, scorer, top_k=k), "sharded/dispatch")
+            h.get_arrays()
+            disp.append(ms)
     torch.cuda.synchronize()
-    log(f"3s warm-up (2 passes): {time.perf_counter() - t:.1f} s")
+    log(f"3s warm-up (2 passes): {time.perf_counter() - t:.1f} s; sharded/dispatch per window (ms, "
+        f"the first two capture) {', '.join(f'{v:.3f}' for v in disp)}; {sharded_graph_stats(sdix)}")
 
     turns = []
-    for turn, d in (("single-device", dix), ("sharded", sdix), ("sharded", sdix),
-                    ("single-device", dix)):
+    ms_turn = {"graphs": [], "eager": []}
+    disp_turn = {"graphs": [], "eager": []}
+    counts_turn = {}
+    for turn, d in (("single-device", dix), ("graphs", sdix), ("eager", sdix), ("eager", sdix),
+                    ("graphs", sdix), ("single-device", dix)):
         reset_bm25_counts()
-        dt, lat_ms, out = serve_pipelined(lambda i, d=d: d.query_batch_async(windows[i % 2], scorer, top_k=k))
+        with (ShardedEager(sdix) if turn == "eager" else contextlib.nullcontext()):
+            dt, lat_ms, out = serve_pipelined(
+                lambda i, d=d: d.query_batch_async(windows[i % 2], scorer, top_k=k))
         counts = bm25_counts()
+        hist = pdev.metrics.snapshot()["histograms"]
         phases = sharded_host_phases() if d is sdix else ", ".join(
-            f"{p} {pdev.metrics.snapshot()['histograms'][f'query/{p}']['mean_us'] / 1e3:.3f}"
-            for p in HOST_PHASES if f"query/{p}" in pdev.metrics.snapshot()["histograms"])
-        log(f"3s {turn}: 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} ms/window, "
+            f"{p} {hist[f'query/{p}']['mean_us'] / 1e3:.3f}"
+            for p in HOST_PHASES if f"query/{p}" in hist)
+        label = turn if d is dix else f"sharded {turn}"
+        log(f"3s {label}: 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} ms/window, "
             f"{8 * WINDOW / dt:.1f} QPS, window latency p50 {np.median(lat_ms):.1f} ms; host phases "
-            f"(mean ms): {phases}; launches {counts}")
+            f"(mean ms): {phases}; launches {counts}"
+            + (f"; {sharded_graph_stats(sdix)}" if turn == "graphs" else ""))
         if d is sdix:
             assert counts["full"] > 0, counts
-            tally()
+            assert counts_turn.setdefault("sharded", counts) == counts, (counts_turn, counts)
+            ms_turn[turn].append(1e3 * dt / 8)
+            disp_turn[turn].append(hist["sharded/dispatch"]["mean_us"] / 1e3)
+            if turn == "graphs":  # the eager turns are the baseline, not the main path
+                tally()
         turns.append((turn, out))
-    for _turn, out in turns[1:3]:
+    for turn, out in turns[1:5]:
         for i, (_s, slots, keys) in enumerate(out):
             assert slots.shape == (WINDOW, k) and keys.shape == (WINDOW, k)
-            np.testing.assert_array_equal(slots, turns[1][1][i % 2][1])
+            np.testing.assert_array_equal(slots, turns[1][1][i % 2][1], err_msg=f"3s {turn}")
+    log(f"3s sharded, 8 pipelined windows a turn on {card}: ms/window class graphs "
+        f"{', '.join(f'{v:.3f}' for v in ms_turn['graphs'])}, eager "
+        f"{', '.join(f'{v:.3f}' for v in ms_turn['eager'])}; sharded/dispatch mean ms graphs "
+        f"{', '.join(f'{v:.3f}' for v in disp_turn['graphs'])}, eager "
+        f"{', '.join(f'{v:.3f}' for v in disp_turn['eager'])}; slots equal, launch counts equal "
+        f"in every turn")
+    sharded_eager_check(sdix, lambda: sdix.query_batch_async(windows[0], scorer, top_k=k),
+                        "3s window 0")
     t = time.perf_counter()
     for wi, w in enumerate(windows):
         got = with_format(sdix, "f32").query_batch_async(w, scorer, top_k=k).get_arrays()
@@ -1904,23 +2019,38 @@ def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
         f"{err:.3g})")
     assert counts["lanes"] > 0 and counts["merge_topk"] > 0, counts
 
-    # 3r's range window.
+    # 3r's range window: cold (captures), warm, eager, warm again.
     w, rq = range_window(windows[0])
     reset_bm25_counts()
-    ms = {}
-    for run in ("cold", "warm"):
-        t = time.perf_counter()
-        sdix.query_batch_async(w, scorer, top_k=k).get_arrays()
-        torch.cuda.synchronize()
-        ms[run] = 1e3 * (time.perf_counter() - t)
-    counts = bm25_counts()
-    tally()
+    runs, outs, counts = {}, {}, {}
+    for run in ("cold", "warm", "eager", "warm again"):
+        before = bm25_counts()
+        with (ShardedEager(sdix) if run == "eager" else contextlib.nullcontext()):
+            t = time.perf_counter()
+            h, disp_ = submit_timed(lambda: sdix.query_batch_async(w, scorer, top_k=k), "sharded/dispatch")
+            outs[run] = h.get_arrays()
+            torch.cuda.synchronize()
+            runs[run] = (1e3 * (time.perf_counter() - t), disp_)
+        counts[run] = {key: n - before[key] for key, n in bm25_counts().items()}
+        if run == "cold":
+            stats = sharded_graph_stats(sdix)
+    for run, out in outs.items():
+        for a, b in zip(out, outs["cold"]):
+            np.testing.assert_array_equal(a, b, err_msg=f"3s range window {run}: rows differ")
+    assert counts["warm"] == counts["eager"] == counts["warm again"], counts
+    for run in ("cold", "warm", "warm again"):  # the graph runs, not the eager baseline
+        for key in launches:
+            launches[key] += counts[run][key]
     planned, fallback = sdix.plan_batch(w, TOK, scorer)
     range_host = sorted(set(fallback) & set(rq))
-    log(f"3s range window ({len(w)} queries, {len(rq)} with a range term): cold {ms['cold']:.3f} ms, "
-        f"warm {ms['warm']:.3f} ms submit to drained; host rows {len(fallback)} ({len(range_host)} of "
-        f"range queries); launches over cold + warm {counts}; {sharded_host_phases()}")
-    assert planned[4][rq].all() and not range_host and counts["merge_topk"] > 0, (range_host, counts)
+    log(f"3s range window ({len(w)} queries, {len(rq)} with a range term) ms submit to drained / "
+        f"sharded/dispatch ms: " + ", ".join(f"{run} {a:.3f} / {b:.3f}" for run, (a, b) in runs.items())
+        + f" (eager: the same group steps run eagerly); host rows {len(fallback)} "
+        f"({len(range_host)} of range queries); launches a window {counts['warm']} (equal warm, "
+        f"eager, warm again); cold window: {stats}")
+    assert planned[4][rq].all() and not range_host and counts["warm"]["merge_topk"] > 0, (
+        range_host, counts)
+    sharded_eager_check(sdix, lambda: sdix.query_batch_async(w, scorer, top_k=k), "3s range window")
     sub = [w[i] for i in rq]
     s_f, sl_f, k_f = with_format(sdix, "f32").query_batch_async(sub, scorer, top_k=k).get_arrays()
     sdix.config = ix.config
@@ -1974,12 +2104,16 @@ def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
         check_sharded_classes(sdix, queries, scorer, k, errs, label, every)
 
     reset_bm25_counts()
-    log("3s one sharded window, profiled:")
+    log("3s one sharded window (class graphs), profiled:")
     ev_s = profile_windows(lambda i: sdix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
+    log("3s one sharded window (eager), profiled:")
+    with ShardedEager(sdix):
+        ev_e = profile_windows(lambda i: sdix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
     log("3s one single-device window (class graphs), profiled:")
     ev_d = profile_windows(lambda i: dix.query_batch_async(windows[i % 2], scorer, top_k=k), n=2)
-    log(f"3s device busy a window: sharded {sum(ms_ for _c, ms_ in ev_s.values()):.3f} ms, "
-        f"single-device {sum(ms_ for _c, ms_ in ev_d.values()):.3f} ms")
+    log(f"3s device busy a window: sharded class graphs {sum(ms_ for _c, ms_ in ev_s.values()):.3f} "
+        f"ms, sharded eager {sum(ms_ for _c, ms_ in ev_e.values()):.3f} ms, single-device "
+        f"{sum(ms_ for _c, ms_ in ev_d.values()):.3f} ms; {sharded_graph_stats(sdix)}")
 
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
@@ -2275,8 +2409,16 @@ def phase_sharded_z2o(ix, dix, windows, card):
     log(f"4s sharded z2o snapshot on {sz.mesh}: {time.perf_counter() - t:.3f} s; local slots "
         f"{sz.local_slots}, K4 key_bits per shard {sz.z2o_key_bits}")
     with_format(sz, "slots")
-    for w in windows:  # warm-up: first launches
-        sz.query_batch_z2o(w, top_k=k).get_arrays()
+    pdev.metrics.reset()
+    disp = []
+    for _ in range(2):  # warm-up: first launches, the class graphs
+        for w in windows:
+            h, ms = submit_timed(lambda: sz.query_batch_z2o(w, top_k=k), "sharded/dispatch")
+            h.get_arrays()
+            disp.append(ms)
+    torch.cuda.synchronize()
+    log(f"4s warm-up (2 passes): sharded/dispatch per window (ms, the first two capture) "
+        f"{', '.join(f'{v:.3f}' for v in disp)}; {sharded_graph_stats(sz)}")
     reset_z2o_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2292,6 +2434,51 @@ def phase_sharded_z2o(ix, dix, windows, card):
         f"latency {', '.join(f'{v:.1f}' for v in lat)} ms (queued, host clock); host phases (mean "
         f"ms): {sharded_host_phases()}; launches {counts}")
     assert counts["fused_z2o"] > 0 and counts["host_rows"] == 0, counts
+    # Class graphs against the same group steps run eagerly, in turns.
+    turns = {"graphs": [], "eager": []}
+    disp_turn = {"graphs": [], "eager": []}
+    for path in ("graphs", "eager", "eager", "graphs"):
+        reset_z2o_counts()
+        with (ShardedEager(sz) if path == "eager" else contextlib.nullcontext()):
+            dt_, lat_, out_ = serve_pipelined(lambda i: sz.query_batch_z2o(windows[i % 2], top_k=k))
+        moved = z2o_counts()
+        assert moved == {key: 4 * n for key, n in counts.items()}, (path, moved, counts)  # 4x each
+        for i, (_s, sl, _k) in enumerate(out_):
+            np.testing.assert_array_equal(sl, out[i % 2][1], err_msg=f"4s {path}: rows differ")
+        turns[path].append(1e3 * dt_ / 8)
+        disp_turn[path].append(pdev.metrics.snapshot()["histograms"]["sharded/dispatch"]["mean_us"] / 1e3)
+        log(f"4s {path} turn: {1e3 * dt_ / 8:.3f} ms/window, p50 {np.median(lat_):.1f} ms; host phases "
+            f"(mean ms): {sharded_host_phases()}; launches {moved}")
+    log(f"4s 8 pipelined windows a turn on {card}, ms/window: class graphs "
+        f"{', '.join(f'{v:.3f}' for v in turns['graphs'])}, eager "
+        f"{', '.join(f'{v:.3f}' for v in turns['eager'])}; sharded/dispatch mean ms graphs "
+        f"{', '.join(f'{v:.3f}' for v in disp_turn['graphs'])}, eager "
+        f"{', '.join(f'{v:.3f}' for v in disp_turn['eager'])}; rows and launch counts equal; "
+        f"{sharded_graph_stats(sz)}")
+    sharded_eager_check(sz, lambda: sz.query_batch_z2o(windows[0], top_k=k), "4s window 0")
+    # The sharded z2o planner (not pooled, as JAX's) alone, with Python's
+    # cyclic garbage collector on and off.
+    plan_ms = {"on": [], "off": []}
+    try:
+        for state in ("on", "off", "on", "off"):
+            (gc.enable if state == "on" else gc.disable)()
+            for w in windows:
+                t = time.perf_counter()
+                sz.plan_batch_z2o(w, TOK)
+                plan_ms[state].append(1e3 * (time.perf_counter() - t))
+    finally:
+        gc.enable()
+    log(f"4s plan_batch_z2o alone, ms a window (host clock; {len(gc.get_objects())} objects "
+        f"tracked by the collector): collector on "
+        f"{', '.join(f'{v:.3f}' for v in plan_ms['on'])}; off "
+        f"{', '.join(f'{v:.3f}' for v in plan_ms['off'])}")
+    log("4s one sharded z2o window (class graphs), profiled:")
+    ev_g = profile_windows(lambda i: sz.query_batch_z2o(windows[i % 2], top_k=k), n=2)
+    log("4s one sharded z2o window (eager), profiled:")
+    with ShardedEager(sz):
+        ev_e = profile_windows(lambda i: sz.query_batch_z2o(windows[i % 2], top_k=k), n=2)
+    log(f"4s device busy a window: class graphs {sum(ms_ for _c, ms_ in ev_g.values()):.3f} ms, "
+        f"eager {sum(ms_ for _c, ms_ in ev_e.values()):.3f} ms")
     for w, (_s, slots, _keys) in zip(windows, out):
         want = pz.z2o_query_batch_async(dix, w, TOK, k, fmt="slots").get_arrays()
         log(f"4s window slots equal to the single-device engine's: "

@@ -1723,12 +1723,16 @@ class DeviceIndex:
     def _class_step(self, scorer, key: ClassKey, aux):
         """The step of the class ``key`` as a function of its static input:
         its packed rows (``key.fmt``), or its f32 scores and int32 slots
-        (``"parts"``), padded to k."""
+        (``"parts"``), padded to k.  The step, which its graph keeps, holds
+        the index's tensors and not the index: a graph referring back to
+        its ``DeviceIndex`` would keep a dropped snapshot (its records and
+        its graphs' pool) alive until a full garbage collection."""
+        rec, field_avg = self.rec, self.field_avg
 
         def step(words):
             n = key.b_out * key.nj * 3
             s, d = _query_step(
-                scorer, self.rec, self.field_avg, words[n:].view(torch.float32),
+                scorer, rec, field_avg, words[n:].view(torch.float32),
                 words[:n].view(key.b_out, key.nj * 3), aux, chunk=key.chunk,
                 k=min(key.k, key.num_chunks * key.chunk), qterm_bits=key.qterm_bits,
                 num_fields=key.num_fields, num_chunks=key.num_chunks,

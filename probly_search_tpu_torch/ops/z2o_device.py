@@ -556,14 +556,16 @@ def _z2o_class_rows(
 ):
     """One z2o shape class: ``jobs`` int32[b_out, NJ, 4] and ``ql``
     f32[b_out] -> its packed rows, padded to k (the fast program or the
-    lockstep program)."""
+    lockstep program); with ``fmt`` "parts" its f32 scores and int32 slots
+    apart, padded to k."""
     kw = dict(chunk=chunk, k=min(k, num_chunks * chunk * num_fields), num_fields=num_fields,
               num_chunks=num_chunks)
     if fast:
         s, d = z2o_fast_step(rec, jobs, ql, fused_ok=fused_ok, key_bits=key_bits, **kw)
     else:
         s, d = z2o_step(rec, jobs, ql, **kw)
-    return pack_result_rows(*_pad_k(s, d, k), fmt)
+    s, d = _pad_k(s, d, k)
+    return (s, d) if fmt == "parts" else pack_result_rows(s, d, fmt)
 
 
 def _z2o_window_step(

@@ -22,12 +22,26 @@ lanes + K5), and zero-to-one through ``z2o_fast_step`` (K4) or the lockstep
 program.  A mesh is driven from one process, as JAX's single-controller
 ``shard_map`` is; cells that share a device run one after another on its
 stream.
+
+On a CUDA mesh the classes replay cached CUDA graphs, the counterpart of
+the JAX engine's program cache ``_step_cache`` (``_get_window_step``,
+``_get_z2o_window_step``), keyed per class as the single-device engine's
+``ClassGraphs`` are: a *group* is the cells of one data row that sit on one
+device, and each (group, class shape) has one graph that runs the class on
+every shard of the group in turn (``ShardedClassKey``,
+``ShardedZ2OClassKey``).  Each distinct device of the mesh has its own
+``ClassGraphs`` (a graph captures on its own device: its own pool, lock and
+side stream); cells that share a card share its cache, and the data rows of
+a card share its graphs, since a capture bakes in only tensors that are one
+per (shard, device).  The gather and merge stay outside the graphs (their
+copies may cross devices).  A CPU mesh runs every cell eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Set
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -37,10 +51,12 @@ from ..index.device import (
     _LEN_BITS,
     _MAX_JOB_LEN,
     _QT_BITS,
+    ClassGraphs,
     DeviceIndex,
     _bucket,
     _bucket_vec,
     _host_fallback_policy,
+    _pad_k,
     _query_step,
     _scorer_cache_key,
     _segment_arange,
@@ -55,9 +71,71 @@ from ..models.base import QueryResult
 from ..ops.fused_merge import key_bits_for
 from ..ops.fused_query import padded_rows
 from ..ops.fused_z2o import DOC_SHIFT
-from ..ops.z2o_device import z2o_fast_step, z2o_step
+from ..ops.z2o_device import _z2o_class_rows, z2o_fast_step, z2o_step
 from ..utils.metrics import metrics
 from ..utils.tokenizers import whitespace_tokenizer
+
+
+class ShardedClassKey(NamedTuple):
+    """Key of a sharded BM25 class graph: every field of
+    ``index.device.ClassKey`` but ``fmt`` (``key_bits`` one per shard of
+    the group), plus the group's shard ids.  With the snapshot's own
+    statics (chunk, qterm_bits, num_fields) it holds every static of the
+    JAX engine's ``_get_window_step`` key that shapes the graph: the
+    scorer's ``device_cache_key``, the class spec and k.  JAX's ``fmt``
+    has no field: the graph's output is the group's f32 scores and global
+    slots whatever the format (the merge packs them outside it), so the
+    windows of every format share its graphs."""
+
+    program: str  # "bm25"
+    scorer: Any
+    chunk: int
+    num_chunks: int
+    nj: int
+    b_out: int
+    use_ranges: bool
+    k: int
+    qterm_bits: int
+    num_fields: int
+    key_bits: Tuple[int, ...]
+    shards: Tuple[int, ...]
+
+
+class ShardedZ2OClassKey(NamedTuple):
+    """Key of a sharded zero-to-one class graph: every field of
+    ``ops.z2o_device.Z2OClassKey`` but ``fmt`` (``fast`` is False for the
+    lockstep program; ``key_bits`` K4's, one per shard of the group), plus
+    the group's shard ids: every static of the JAX engine's
+    ``_get_z2o_window_step`` key but its ``fmt``, which the graph's output
+    does not depend on (see ``ShardedClassKey``)."""
+
+    program: str  # "z2o"
+    b_out: int
+    nj: int
+    num_chunks: int
+    fast: bool
+    kk: int
+    num_fields: int
+    chunk: int
+    fused_ok: bool
+    key_bits: Tuple[int, ...]
+    k: int
+    shards: Tuple[int, ...]
+
+
+def _global_slots(local, n_shards: int, s: int):
+    """Shard ``s``'s local doc slots -> global slots (-1 stays)."""
+    return torch.where(local >= 0, local * n_shards + s, -1)
+
+
+def _spans(class_specs, width: int):
+    """Per class of a window: the offset of its words in a cell's words and
+    the words of its first ``b_out`` rows (``width`` words a job)."""
+    spans, off = [], 0
+    for b_pad, b_out, nj, *_rest in class_specs:
+        spans.append((off, b_out * nj * width))
+        off += b_pad * nj * width
+    return spans
 
 
 class ShardedDeviceIndex:
@@ -185,6 +263,19 @@ class ShardedDeviceIndex:
         # under concurrent submitters.
         self._qplan_pools: Dict[Any, Dict[str, Any]] = {}
         self._plan_lock = threading.RLock()
+        # The groups of each data row: (device, the shards of the row on it).
+        self._groups = []
+        for d in range(int(mesh.shape["data"])):
+            on: Dict[Any, List[int]] = {}
+            for s in range(n):
+                on.setdefault(mesh.devices[d, s], []).append(s)
+            self._groups.append([(dev, tuple(shards)) for dev, shards in on.items()])
+        # On a CUDA mesh, the class graphs of each distinct device.
+        self._class_graphs = (
+            {dev: ClassGraphs(dev) for dev in dict.fromkeys(cells)}
+            if all(dev.type == "cuda" for dev in cells)
+            else None
+        )
 
     @property
     def key_arr(self) -> np.ndarray:
@@ -820,24 +911,60 @@ class ShardedDeviceIndex:
 
     def _cell_rows(self, s: int, outs, k: int):
         """One cell's class outputs -> (scores f32[SB, k], global slots)."""
-        padded_s, padded_d = [], []
-        for sc, dl in outs:
-            if sc.shape[1] < k:
-                sc = torch.nn.functional.pad(sc, (0, k - sc.shape[1]), value=float("-inf"))
-                dl = torch.nn.functional.pad(dl, (0, k - dl.shape[1]), value=-1)
-            padded_s.append(sc)
-            padded_d.append(dl)
-        scores = torch.cat(padded_s, dim=0)
-        local = torch.cat(padded_d, dim=0)
-        return scores, torch.where(local >= 0, local * self.n_shards + s, -1)
+        padded = [_pad_k(sc, dl, k) for sc, dl in outs]
+        scores = torch.cat([sc for sc, _dl in padded], dim=0)
+        local = torch.cat([dl for _sc, dl in padded], dim=0)
+        return scores, _global_slots(local, self.n_shards, s)
+
+    def _group_inputs(self, buf, d: int, shards, spans, tails, dev):
+        """The static inputs of a group's classes, in one host buffer
+        (pinned for a CUDA device): per class, the group's cells' first rows
+        back to back (``spans``: per class the offset of its words in a
+        cell's words of ``buf[s, d]`` and the words of its first ``b_out``
+        rows), then the tails (``tails``: an int32 array per class, or one
+        that every class shares).  Returns [(rows, tail) per class]."""
+        G = len(shards)
+        total = G * sum(n for _o, n in spans) + sum(len(t) for t in tails)
+        host = torch.empty(total, dtype=torch.int32, pin_memory=dev.type == "cuda")
+        h = host.numpy()
+        sel = list(shards)
+        rows, off = [], 0
+        for src, n in spans:
+            h[off : off + G * n].reshape(G, n)[:] = buf[sel, d, src : src + n]
+            rows.append(host[off : off + G * n])
+            off += G * n
+        ends = []
+        for t in tails:
+            h[off : off + len(t)] = t
+            ends.append(host[off : off + len(t)])
+            off += len(t)
+        return list(zip(rows, ends if len(ends) > 1 else ends * len(spans)))
+
+    def _run_groups(self, d: int, classes_of, k: int, fmt: str):
+        """Data row ``d`` on the class graphs: each group's classes
+        (``classes_of(dev, shards)``, as ``ClassGraphs.run`` takes them) on
+        its device's cache, each output copied out before the next replay,
+        then the row's gather and merge.  Returns its packed rows."""
+        parts = [None] * self.n_shards
+        for dev, shards in self._groups[d]:
+            outs = self._class_graphs[dev].run(classes_of(dev, shards))
+            scores = torch.cat([o[0] for o in outs], dim=1)  # [G, SB, k]
+            slots = torch.cat([o[1] for o in outs], dim=1)
+            for g, s in enumerate(shards):
+                parts[s] = (scores[g], slots[g])
+        return self._gather_merge(d, parts, k, fmt)
 
     def _bm25_step(self, scorer, class_specs, buf, fields_boost, aux, k: int, fmt: str):
         """The BM25 window on every cell: per class ``_query_step`` on the
         shard's records at the shard's key width (rows beyond ``b_out`` are
         padding and not computed), then per data row the gather and merge.
-        Returns the packed rows per data row."""
+        On a CUDA mesh each group's classes replay their graphs
+        (``_bm25_group_step``).  Returns the packed rows per data row."""
         d_ax, n, C, F = int(self.mesh.shape["data"]), self.n_shards, self.CHUNK, self.num_fields
         boost = np.asarray(fields_boost, dtype=np.float32).view(np.int32)
+        if self._class_graphs is not None:
+            classes = functools.partial(self._bm25_classes, scorer, class_specs, buf, boost, aux, k)
+            return [self._run_groups(d, functools.partial(classes, d), k, fmt) for d in range(d_ax)]
         words, boosts = self._upload([[buf[s, d] for s in range(n)] for d in range(d_ax)], boost)
         rows = []
         for d in range(d_ax):
@@ -862,12 +989,68 @@ class ShardedDeviceIndex:
             rows.append(self._gather_merge(d, parts, k, fmt))
         return rows
 
+    def _bm25_classes(self, scorer, class_specs, buf, boost, aux, k: int, d: int, dev, shards):
+        """The BM25 classes of the group ``shards`` of data row ``d`` on
+        ``dev``, as ``ClassGraphs.run`` takes them: per class its
+        ``ShardedClassKey``, its step's maker (``_bm25_group_step``) and the
+        pieces of its static input (``_group_inputs``: the cells' job rows,
+        then the F boost words ``boost``)."""
+        spans = _spans(class_specs, 3)
+        pieces = self._group_inputs(buf, d, shards, spans, [boost], dev)
+        skey, C, F = _scorer_cache_key(scorer), self.CHUNK, self.num_fields
+        key_bits = tuple(self.key_bits[s] for s in shards)
+        classes = []
+        for (_bp, b_out, nj, nc, rng), piece in zip(class_specs, pieces):
+            key = ShardedClassKey(
+                "bm25", skey, C, nc, nj, b_out, rng, k, self._qterm_bits, F, key_bits, shards
+            )
+            make = functools.partial(self._bm25_group_step, scorer, key, d, aux if rng else None)
+            classes.append((key, make, piece))
+        return classes
+
+    def _bm25_group_step(self, scorer, key: ShardedClassKey, d: int, aux):
+        """The step of the class ``key`` on its group (of data row ``d``)
+        as a function of its static input: each shard's first ``b_out`` job
+        rows in turn, then the F field-boost words -> the group's (f32
+        scores, global slots) [G, b_out, k], padded to k.  Row ``d``'s
+        tensors are its shards' copies on the device, which every row on
+        that device shares.  The step (which its graph keeps) holds tensors,
+        not the snapshot, so a dropped snapshot is freed at once."""
+        recs = [self._rec_cells[d][s] for s in key.shards]
+        field_avg = self._field_avg[recs[0].device]
+        auxs = [aux[d][s] for s in key.shards] if aux is not None else None
+        n, n_shards = key.b_out * key.nj * 3, self.n_shards
+
+        def step(words):
+            boost = words[len(recs) * n :].view(torch.float32)
+            scores, slots = [], []
+            for g, s in enumerate(key.shards):
+                sc, dl = _query_step(
+                    scorer, recs[g], field_avg, boost,
+                    words[g * n : (g + 1) * n].view(key.b_out, key.nj * 3),
+                    auxs[g] if auxs is not None else None, chunk=key.chunk,
+                    k=min(key.k, key.num_chunks * key.chunk), qterm_bits=key.qterm_bits,
+                    num_fields=key.num_fields, num_chunks=key.num_chunks,
+                    use_ranges=key.use_ranges, key_bits=key.key_bits[g],
+                )
+                sc, dl = _pad_k(sc, dl, key.k)
+                scores.append(sc)
+                slots.append(_global_slots(dl, n_shards, s))
+            return torch.stack(scores), torch.stack(slots)
+
+        return step
+
     def _z2o_step(self, class_specs, buf, qcat, k: int, fmt: str, lockstep: bool):
         """The z2o window on every cell: per class K4 through
         ``z2o_fast_step`` (fused where the doc slots allow, ``local_slots <
         2^26``) or the lockstep program for shared-node queries, then per
-        data row the gather and merge.  Returns the packed rows per row."""
+        data row the gather and merge.  On a CUDA mesh each group's classes
+        replay their graphs (``_z2o_group_step``).  Returns the packed rows
+        per row."""
         d_ax, n, C, F = int(self.mesh.shape["data"]), self.n_shards, self.CHUNK, self.num_fields
+        if self._class_graphs is not None:
+            classes = functools.partial(self._z2o_classes, class_specs, buf, qcat, k, lockstep)
+            return [self._run_groups(d, functools.partial(classes, d), k, fmt) for d in range(d_ax)]
         nq = qcat.shape[1]
         cell_words = [
             [np.concatenate([buf[s, d], qcat[d].view(np.int32)]) for s in range(n)]
@@ -900,6 +1083,49 @@ class ShardedDeviceIndex:
                 parts.append(self._cell_rows(s, outs, k))
             rows.append(self._gather_merge(d, parts, k, fmt))
         return rows
+
+    def _z2o_classes(self, class_specs, buf, qcat, k: int, lockstep: bool, d: int, dev, shards):
+        """The z2o classes of the group ``shards`` of data row ``d`` on
+        ``dev``, as ``ClassGraphs.run`` takes them (see ``_bm25_classes``;
+        each class's tail is its ``b_out`` qlen words of row ``d``)."""
+        qoffs = np.cumsum([0] + [spec[0] for spec in class_specs])
+        qlen = [qcat[d, qo : qo + spec[1]].view(np.int32) for qo, spec in zip(qoffs, class_specs)]
+        pieces = self._group_inputs(buf, d, shards, _spans(class_specs, 4), qlen, dev)
+        C, F = self.CHUNK, self.num_fields
+        key_bits = tuple(self.z2o_key_bits[s] for s in shards)
+        classes = []
+        for (_bp, b_out, nj, nc), piece in zip(class_specs, pieces):
+            key = ShardedZ2OClassKey(
+                "z2o", b_out, nj, nc, not lockstep, min(k, nc * C * max(F, 1)), F, C,
+                self.local_slots < (1 << 26), key_bits, k, shards,
+            )
+            classes.append((key, functools.partial(self._z2o_group_step, key, d), piece))
+        return classes
+
+    def _z2o_group_step(self, key: ShardedZ2OClassKey, d: int):
+        """The step of the z2o class ``key`` on its group (of data row
+        ``d``): each shard's first ``b_out`` job rows in turn, then the
+        ``b_out`` qlen words -> the group's (f32 scores, global slots)
+        [G, b_out, k], padded to k (``z2o_device._z2o_class_rows``; the
+        step holds tensors, not the snapshot, as ``_bm25_group_step``'s)."""
+        recs = [self._rec_cells[d][s] for s in key.shards]
+        n, n_shards = key.b_out * key.nj * 4, self.n_shards
+
+        def step(words):
+            ql = words[len(recs) * n :].view(torch.float32)
+            scores, slots = [], []
+            for g, s in enumerate(key.shards):
+                sc, dl = _z2o_class_rows(
+                    recs[g], words[g * n : (g + 1) * n].view(key.b_out, key.nj, 4), ql,
+                    chunk=key.chunk, k=key.k, num_fields=key.num_fields,
+                    num_chunks=key.num_chunks, fast=key.fast, fused_ok=key.fused_ok,
+                    fmt="parts", key_bits=key.key_bits[g],
+                )
+                scores.append(sc)
+                slots.append(_global_slots(dl, n_shards, s))
+            return torch.stack(scores), torch.stack(slots)
+
+        return step
 
     def _start_fetch(self, rows):
         """Start the D2H copy of each data row's packed rows behind its work

@@ -21,8 +21,10 @@ static inputs and steps on the CPU:
 """
 
 import dataclasses
+import gc
 import inspect
 import re
+import weakref
 
 import numpy as np
 import pytest
@@ -212,6 +214,26 @@ def test_heavy_sub_window_keys_apart_from_the_window(corpus):
     plain = DeviceIndex(ix, device="cpu").query_batch_async(window, bm25.new(), top_k=K)
     for a, b in zip(got, plain.get_arrays()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_a_dropped_snapshot_frees_without_a_collection(corpus):
+    """The cache keeps each class's step (a CUDA graph keeps its capture),
+    and a step holds the index's tensors, not the DeviceIndex: with the
+    collector off, dropping the snapshot frees it (on a card: its records
+    and its graphs' pool) by reference count alone."""
+    vocab, texts, window = corpus
+    ix = _index(texts, result_format="f32", range_min_expansions=2)
+    gc.disable()
+    try:
+        dix = DeviceIndex(ix, device="cpu")
+        keys, _out = _keys(ix, window + ["t00"], dix=dix)
+        assert any(key.use_ranges for key in keys)
+        assert all(callable(step) for step in dix._class_graphs._graphs.values())
+        ref = weakref.ref(dix)
+        del dix
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 @pytest.fixture(scope="module")

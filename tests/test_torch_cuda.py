@@ -536,21 +536,15 @@ def test_range_window_on_cuda_matches_cpu():
     assert_topk_agree(got[0], got[1], want[0], want[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("data,docs", [(1, 4), (2, 2)])
-def test_sharded_window_on_cuda_matches_single_device(data, docs):
-    """A doc-sharded window on ``cuda:0`` x 4 (every class kind: K1 classes,
-    a K3 + K5 class past 16,384 lanes, term-range classes, a fallback query,
-    ties across shards) against the single-device engine on the card, with
-    each shard's merge keys at its own width (shard 0's largest local slot
-    is a power of two); and a zero-to-one window (K4 and the lockstep
-    program) the same way."""
-    _cuda()
+def _sharded_corpus():
+    """One field, chunk 128, 4,097 docs (shard 0's largest local slot a
+    power of two on 4 shards), latent deletes, 16 tie docs over every shard;
+    a window with every class kind on 4 shards: K1 classes, a class past
+    16,384 lanes a shard (``p``: K3 + K5), term-range classes (200
+    expansions: ``q``, ``q01 a``), a host-fallback query (nine terms)."""
     import random
 
-    from probly_search_tpu_torch import Index, IndexConfig, make_mesh
-    from probly_search_tpu_torch.ops import z2o_device as pz
-    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+    from probly_search_tpu_torch import Index, IndexConfig
 
     rng = random.Random(8)
     vocab = ["".join(rng.choice("abcdef") for _ in range(rng.randint(1, 4))) for _ in range(120)]
@@ -567,6 +561,24 @@ def test_sharded_window_on_cuda_matches_single_device(data, docs):
         ix.remove_document(key)
     window = [" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3))) for _ in range(200)]
     window += ["p", "p01", "q", "q01 a", "tie", "a", "b", "", "zzz", " ".join(vocab[:9])]
+    return ix, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,docs", [(1, 4), (2, 2)])
+def test_sharded_window_on_cuda_matches_single_device(data, docs):
+    """A doc-sharded window on ``cuda:0`` x 4 (every class kind: K1 classes,
+    a K3 + K5 class past 16,384 lanes, term-range classes, a fallback query,
+    ties across shards) against the single-device engine on the card, with
+    each shard's merge keys at its own width (shard 0's largest local slot
+    is a power of two); and a zero-to-one window (K4 and the lockstep
+    program) the same way."""
+    _cuda()
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.ops import z2o_device as pz
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+
+    ix, window = _sharded_corpus()
     sdix = ShardedDeviceIndex(ix, make_mesh(data, docs, devices=["cuda:0"] * 4))
     assert sdix.key_bits[0] == sdix.key_bits[1] + 1
     planned, fallback = sdix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
@@ -755,3 +767,191 @@ def test_class_graphs_replay_out_of_capture_order_on_cuda():
             assert torch.equal(s, fs) and torch.equal(d, fd), turn
     assert len(dix._class_graphs) == len({key for key, _m, _p in classes}) < len(classes)
     assert dix._class_graphs.pool_bytes > 0
+
+
+def _sharded_served(sdix, window, scorer):
+    """One sharded window of ``scorer`` (None: zero-to-one): its handle,
+    arrays and the launch counts it moved, per counter."""
+    before = _launch_counts()
+    if scorer is None:
+        h = sdix.query_batch_z2o(window, top_k=10)
+    else:
+        h = sdix.query_batch_async(window, scorer, top_k=10)
+    out = h.get_arrays()
+    torch.cuda.synchronize()
+    moved = [{key: n - was.get(key, 0) for key, n in c.items() if n != was.get(key, 0)}
+             for c, was in zip(pdev._launch_counters(), before)]
+    return h, out, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bm25", "tfboost", "z2o"])
+@pytest.mark.parametrize("data,docs", [(1, 4), (2, 2)])
+def test_sharded_class_graphs_match_eager_on_cuda(data, docs, kind):
+    """Sharded windows on ``cuda:0`` x 4 replay one cached graph per (group,
+    class): packed rows bit-equal to the same group steps run eagerly
+    (``EagerClasses``) and to the eager cells (no caches), every launch
+    counter moved as the eager window moves it, on the capturing window and
+    on a replayed one; BM25 with K1, K3 + K5 and range classes, TfBoost
+    (staged lanes + K5), zero-to-one with K4, staged and lockstep
+    classes."""
+    _cuda()
+    import dataclasses
+
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    from .torch_util import EagerClasses, TfBoost
+
+    ix, window = _sharded_corpus()
+    ix.config = dataclasses.replace(ix.config, result_format="f32")
+    mesh = make_mesh(data, docs, devices=["cuda:0"] * 4)
+    scorer = {"bm25": bm25.new(), "tfboost": TfBoost(), "z2o": None}[kind]
+    if kind == "z2o":
+        window = window[:100] + ["p", "a a", "ab a b"]
+    graphs, eager, cells = (ShardedDeviceIndex(ix, mesh) for _ in range(3))
+    eager._class_graphs = {dev: EagerClasses(dev) for dev in eager._class_graphs}
+    cells._class_graphs = None
+    want_h, want, want_moved = _sharded_served(eager, window, scorer)
+    plain_h, plain, plain_moved = _sharded_served(cells, window, scorer)
+    (runs,) = [g.windows for g in eager._class_graphs.values()]
+    metrics.reset()
+    for turn in range(2):
+        got_h, got, moved = _sharded_served(graphs, window, scorer)
+        for a, b, c in zip(got, want, plain):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        for rows_g, rows_w, rows_p in zip(got_h._packed, want_h._packed, plain_h._packed):
+            for a, b, c in zip(rows_g, rows_w, rows_p):
+                assert torch.equal(a, b) and torch.equal(a, c), turn
+        assert moved == want_moved == plain_moved, (turn, moved, want_moved, plain_moved)
+        (cache,) = graphs._class_graphs.values()
+        ctr = metrics.counters
+        assert ctr["class_graph_captures"] == len(cache) > 0
+        assert ctr["class_graph_replays"] == (turn + 1) * sum(len(run) for run in runs)
+    keys = set(cache.keys())
+    assert keys == {key for run in runs for key in run}
+    assert all(key.shards == tuple(range(docs)) for key in keys)
+    if kind == "bm25":
+        assert any(key.use_ranges for key in keys)
+        assert want_moved[0].get("full") and want_moved[0].get("lanes")
+        assert want_moved[2].get("merge_topk")
+    elif kind == "tfboost":
+        assert not want_moved[0] and want_moved[2].get("merge_topk")
+    else:
+        assert want_moved[4].get("fused_z2o") and want_moved[5].get("z2o_staged") \
+            and want_moved[5].get("z2o_lockstep"), want_moved
+        assert {key.fast for key in keys} == {True, False}
+
+
+@pytest.mark.cuda
+def test_sharded_class_graphs_capture_only_new_keys_on_cuda():
+    """Mesh (2, 2) on one card: the two data rows share the card's graphs
+    (the second row captures nothing); a second window of another
+    composition captures only the keys the first did not."""
+    _cuda()
+    import dataclasses
+
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix, window = _sharded_corpus()
+    sdix = ShardedDeviceIndex(ix, make_mesh(2, 2, devices=["cuda:0"] * 4))
+    sdix.config = dataclasses.replace(ix.config, prune_blocks=False)  # the window packs `specs`
+    planned, _fb = sdix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
+    specs = sdix._pack_window(planned, len(window))[0]
+    metrics.reset()
+    sdix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    (cache,) = sdix._class_graphs.values()
+    first = set(cache.keys())
+    assert metrics.counters["class_graph_captures"] == len(first)
+    assert metrics.counters["class_graph_replays"] == 2 * len(specs)  # a class a data row
+    second = window[::2] + ["p"]
+    metrics.reset()
+    got = sdix.query_batch_async(second, bm25.new(), top_k=10).get_arrays()
+    new = set(cache.keys()) - first
+    assert new and metrics.counters["class_graph_captures"] == len(new)
+    want = pdev.DeviceIndex(ix, device="cuda").query_batch_async(second, bm25.new(), top_k=10)
+    c = want.get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
+
+
+@pytest.mark.cuda
+def test_sharded_class_graphs_replay_out_of_capture_order_on_cuda():
+    """The card's shared pool: a group's classes (K1 classes, a K3 + K5
+    class, range classes) captured in one order and replayed in the reverse
+    order, twice, each class's outputs equal to its eager step's."""
+    _cuda()
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+
+    ix, window = _sharded_corpus()
+    sdix = ShardedDeviceIndex(ix, make_mesh(1, 4, devices=["cuda:0"] * 4))
+    planned, _fb = sdix.plan_batch(window, pdev.whitespace_tokenizer, bm25.new())
+    specs, _layout, buf = sdix._pack_window(planned, len(window))
+    assert any(s[4] for s in specs) and any(s[3] * 128 > pdev._FUSED_MAX_LANES for s in specs)
+    ((dev, shards),) = sdix._groups[0]
+    classes = sdix._bm25_classes(
+        bm25.new(), specs, buf, np.ones(1, np.float32).view(np.int32), sdix._aux_rec(bm25.new()),
+        10, 0, dev, shards,
+    )
+    want = [tuple(t.clone() for t in make()(torch.cat([p.cuda() for p in pieces])))
+            for _key, make, pieces in classes]
+    cache = sdix._class_graphs[dev]
+    first = cache.run(classes)
+    for turn in range(2):
+        got = cache.run(classes[::-1])[::-1]
+        torch.cuda.synchronize()
+        for (s, d), (ws, wd), (fs, fd) in zip(got, want, first):
+            assert torch.equal(s, ws) and torch.equal(d, wd), turn
+            assert torch.equal(s, fs) and torch.equal(d, fd), turn
+    assert len(cache) == len({key for key, _m, _p in classes}) and cache.pool_bytes > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [False, True], ids=["single", "sharded"])
+def test_class_graphs_free_with_their_snapshot_on_cuda(sharded):
+    """A snapshot's class graphs keep their steps, which hold the
+    snapshot's tensors and not the snapshot: with the collector off,
+    dropping a DeviceIndex or ShardedDeviceIndex whose windows captured
+    graphs (a range class among them) frees it and returns the card's
+    allocated memory to what it was before (a first round warms the
+    kernels' build and the allocator)."""
+    _cuda()
+    import gc
+    import weakref
+
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+
+    ix, window = _sharded_corpus()
+
+    def snapshot():
+        if sharded:
+            return ShardedDeviceIndex(ix, make_mesh(1, 4, devices=["cuda:0"] * 4))
+        return pdev.DeviceIndex(ix, device="cuda")
+
+    d = snapshot()
+    d.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    del d
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        d = snapshot()
+        d.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+        caches = list(d._class_graphs.values()) if sharded else [d._class_graphs]
+        assert all(len(c) for c in caches) and any(
+            key.use_ranges for c in caches for key in c.keys())
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() > base
+        ref = weakref.ref(d)
+        del d, caches
+        torch.cuda.synchronize()
+        assert ref() is None
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        gc.enable()

@@ -35,10 +35,13 @@ class TfBoost(BaseScoreCalculator):
 
 class EagerClasses(ClassGraphs):
     """``ClassGraphs`` with each class's step run eagerly, not captured and
-    replayed.  Set as a DeviceIndex's ``_class_graphs``, it drives the
-    class-graph path (keys, static inputs, steps, copies out) on any device,
-    the CPU included; on the card it is the eager baseline the graphs are
-    held against and timed beside.  ``windows`` lists each run's keys."""
+    replayed: the step that a key's first sight builds is kept and run for
+    every later class of that key, as a graph keeps its capture.  Set as a
+    DeviceIndex's ``_class_graphs`` (or, one per device, a
+    ShardedDeviceIndex's), it drives the class-graph path (keys, static
+    inputs, steps, copies out) on any device, the CPU included; on the card
+    it is the eager baseline the graphs are held against and timed beside.
+    ``windows`` lists each run's keys."""
 
     def __init__(self, device) -> None:
         super().__init__(device)
@@ -49,9 +52,11 @@ class EagerClasses(ClassGraphs):
         return super().run(classes, concat)
 
     def _replay(self, key, make_step, pieces):
-        self._graphs[key] = None
+        step = self._graphs.get(key)
+        if step is None:
+            step = self._graphs[key] = make_step()
         words = torch.cat([p.to(self.device, non_blocking=True) for p in pieces])
-        return make_step()(words)
+        return step(words)
 
 
 def make_rec(rng, F=1, n_docs=400, n_terms=120, C=128):
