@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the torch port (probly_search_tpu_torch) on one CUDA card.
+"""GPU smoke run of the torch port (probly_search_tpu_torch) on one CUDA card,
+and, where four are visible, of the doc-sharded engine over four cards.
 
     python3 chip_smoke.py
 
@@ -101,6 +102,26 @@ Phases (any failure raises, so the exit code is not 0):
      bit-equal to the eager step on its words; (d) K1 at chunk 256 against
      plain on every light class of the first window (max error, CUDA-event
      and device times, bound);
+  3m. (after 3l; with one card visible it logs that it did not run and
+     how many cards are visible) phase 3's index on make_mesh(1, 4) over
+     four distinct cards (make_mesh(1, n) over two or three): the peer
+     access of each pair of cards; the snapshot's build seconds and bytes
+     on each card; a warm-up of 2 passes (sharded/dispatch cold and warm;
+     captures, replays, keys and pool bytes per card); 8 pipelined windows
+     a turn on 3s's one-card 4-shard engine, the cards, the cards, one
+     card (ms/window, QPS, p50, sharded/* host phases, launches, launches
+     per card: each card's equal to the one-card engine's per shard); the
+     gather of one window timed on the row's first card (the copies from
+     the other cards alone, and the gather and merge); both windows in f32
+     and slots20, the head-term window and 3r's range window (cold and
+     warm, no range query on the host) bit-equal to the one-card engine's
+     (arrays and packed rows); recall@10 against the f64 oracle; K1, K3 +
+     K5 and K5 held against plain on each shard's card; device busy per
+     card (torch.profiler, by device index); a DeviceIndex on the last
+     card prewarmed from the bench manifest, its template-graph rows
+     bit-equal to 3g's on cuda:0; then a mutation (1,000 documents added,
+     100 removed), the old snapshot freed on every card with the collector
+     off, and the new one's rows against the f64 oracle;
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route; served cold, warm, eagerly and warm again (ms,
      z2o/dispatch, captures, keys, pool bytes, the warm window bit-equal to
@@ -130,8 +151,7 @@ Phases (any failure raises, so the exit code is not 0):
      class of each other shard, held kernel against plain at that shard's
      key_bits (K1; K3 + K5; the range classes' K5); device busy of one
      sharded window on the class graphs, one eager and one single-device
-     window under torch.profiler; on a host with several cards also a
-     mesh over distinct cards (else logged as not run);
+     window under torch.profiler;
   4. the zero-to-one main path at the repo's zero_to_one_50k configuration
      (benchmarks/zero_to_one_50k.py: 50,000 docs, a 3-token title and an
      8-token body, Zipf(1.05) over 4,000 terms, seed 7; 2-term queries with
@@ -156,14 +176,22 @@ Phases (any failure raises, so the exit code is not 0):
      path (torch.profiler), slots equal to the single-device engine's,
      tie-aware recall@10 against the f64 oracle on 256 queries, and K4
      held against plain on every K4 class of shard 0 at that shard's
-     key_bits.
+     key_bits;
+  4m. (with fewer than four cards visible it logs that it did not run and
+     how many are visible) that configuration on make_mesh(2, 2) over four
+     distinct cards against 4s's mesh on one card, as 3m: build, warm-up,
+     turns, launches per card, the gather, both windows and 256 queries in
+     f32 bit-equal (arrays and packed rows), tie-aware recall@10, busy per
+     card, and K4 held against plain on each card (the widest K4 class of
+     each cell).
 Every window without a frozen template's CUDA graph replays cached class
 graphs (index/device.py ClassGraphs; the sharded engine's, one cache a
 device, parallel/dist_query.py); "eager" turns swap in
 tests/torch_util.EagerClasses, which runs the same class steps eagerly, as
 a baseline: the kernels line's launches count the graph runs only.
 The line before the last is the kernels' JSON record (K1 a second time at
-chunk 256, its launches those of 3l's light windows); the last line is
+chunk 256, its launches those of 3l's light windows; 3m's and 4m's
+launches, per card, are on lines of their own); the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device: without one it exits
 with an error before printing any result.
 """
@@ -178,6 +206,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -234,6 +263,8 @@ INT32_MAX = 2**31 - 1
 SYN_KEY_BITS = fm.key_bits_for(20_000, QB)  # synthetic_rec's docs
 SYN_Z2O_KEY_BITS = fm.key_bits_for(20_000, fz.DOC_SHIFT)
 N_DOCS = 1_000_000
+# The wrappers' launches per card (K1 / K3, K5, K4); both resets clear them.
+CARD_COUNTS = (fq.device_launches, fm.device_launches, fz.device_launches)
 WINDOW = 16384
 TOK = pdev.whitespace_tokenizer
 KERNELS = {
@@ -274,6 +305,20 @@ F32_OPS_PER_S = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sync_cards() -> None:
+    """Wait for every visible card (``torch.cuda.synchronize()`` waits for
+    the current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def capture_on_current(g):
+    """``torch.cuda.graph`` on a side stream of the current card: torch's
+    shared default capture stream lives on the card that was current when
+    it was first made."""
+    return torch.cuda.graph(g, stream=torch.cuda.Stream(), capture_error_mode="relaxed")
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -317,7 +362,7 @@ def capture(fn):
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+    with capture_on_current(g):
         fn()
     return g
 
@@ -473,7 +518,7 @@ def kernels_per_call(fn):
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+    with capture_on_current(g):
         fn()
     cu = ctypes.CDLL("libcuda.so.1")
     graph = ctypes.c_void_p(g.raw_cuda_graph())
@@ -831,18 +876,24 @@ def add_merge(errs, times, result):
     t[3] = by
 
 
-def profile_windows(submit, n=4):
+def profile_windows(submit, n=4, per_card=None):
     """Windows one at a time (``submit(i)``, drain) under torch.profiler:
     wall time per window, device busy time per window (the sum of kernel
-    times), kernels by device time."""
+    times), kernels by device time.  ``per_card``: a dict that receives the
+    busy ms per window of each card (by the events' ``device_index``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for i in range(n):
             submit(i).get_arrays()
-        torch.cuda.synchronize()
+        sync_cards()
         wall_ms = 1e3 * (time.perf_counter() - t) / n
+    if per_card is not None:
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                per_card[e.device_index] = (per_card.get(e.device_index, 0.0)
+                                            + e.self_device_time_total / 1e3 / n)
     # Device-side events only: a torch op's own entry carries the time of the
     # kernels it launched, which appear again as events of their own.
     events = [
@@ -1033,7 +1084,8 @@ def reset_bm25_counts():
     for counts in (fq.launches, fm.launches, fm.path_calls):
         for key in counts:
             counts[key] = 0
-    fq.chunk_launches.clear()
+    for counts in (fq.chunk_launches, *CARD_COUNTS):
+        counts.clear()
     pdev.metrics.reset()
 
 
@@ -1782,7 +1834,7 @@ def sharded_plan(sdix, queries, scorer, k):
     return planned, specs, buf
 
 
-def check_sharded_classes(sdix, queries, scorer, k, errs, label, every=True):
+def check_sharded_classes(sdix, queries, scorer, k, errs, label, every=True, phase="3s"):
     """Kernel against plain on the window's classes as the sharded engine
     runs them, at each shard's own key_bits: every class of shard 0 (with
     ``every``) and the widest class of each shard; K1 on the full-phase
@@ -1792,45 +1844,46 @@ def check_sharded_classes(sdix, queries, scorer, k, errs, label, every=True):
     kernel."""
     _planned, specs, buf = sharded_plan(sdix, queries, scorer, k)
     Cw = sdix.CHUNK
-    ones = torch.ones(1, device="cuda")
     checked = {"full": 0, "lanes": 0, "merge_topk": 0}
     offs = np.cumsum([0] + [b_pad * nj * 3 for b_pad, _bo, nj, _nc, _r in specs])
     widest = max(range(len(specs)), key=lambda i: (specs[i][3], not specs[i][4]))
     for s in range(sdix.n_shards):
         rec = sdix.rec[s]
-        scalars = torch.cat([sdix._field_avg[rec.device], ones])
-        for ci, (b_pad, b_out, nj, nc, rng) in enumerate(specs):
-            if (s or not every) and ci != widest:
-                continue
-            words = buf[s, 0, offs[ci] : offs[ci + 1]].reshape(b_pad, nj * 3)[:b_out]
-            jobs = torch.from_numpy(np.ascontiguousarray(words)).cuda()
-            kk = min(k, nc * Cw)
-            kb = sdix.key_bits[s]
-            name = f"3s {label} shard {s} class nc={nc} nj={nj} rows={b_out}"
-            if rng:
-                key, score = pdev.staged_lanes(
-                    scorer, rec, sdix._field_avg[rec.device], ones, jobs, sdix._aux_rec(scorer)[0][s],
-                    chunk=Cw, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=True,
-                )
-                res = check_merge(key, score, kk, f"{name} (range)", quiet=True, key_bits=kb)
-                errs["merge_topk"] = max(errs["merge_topk"], res[0])
-                checked["merge_topk"] += 1
-                continue
-            tables = pdev.expand_chunks(jobs.reshape(b_out, nj, 3), Cw, nc)
-            if nc * Cw <= pdev._FUSED_MAX_LANES:
-                err, ms, plain_ms = check_full(scorer, rec, tables, scalars, kk, name, kb)
-                errs["full"] = max(errs["full"], err)
-                checked["full"] += 1
-            else:
-                err, ms, plain_ms = check_lanes(scorer, rec, tables, scalars, kk, name, kb)
-                errs["lanes"] = max(errs["lanes"], err)
-                errs["merge_topk"] = max(errs["merge_topk"], err)
-                checked["lanes"] += 1
-                checked["merge_topk"] += 1
-            if s == 0 and ci < 3 or ci == widest:
-                log(f"{name}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"key_bits {kb}")
-    log(f"3s {label}: kernel against plain on {f'the {len(specs)} classes of shard 0 and ' if every else ''}"
+        with torch.cuda.device(rec.device):  # the shard's card: its checks and timings
+            ones = torch.ones(1, device=rec.device)
+            scalars = torch.cat([sdix._field_avg[rec.device], ones])
+            for ci, (b_pad, b_out, nj, nc, rng) in enumerate(specs):
+                if (s or not every) and ci != widest:
+                    continue
+                words = buf[s, 0, offs[ci] : offs[ci + 1]].reshape(b_pad, nj * 3)[:b_out]
+                jobs = torch.from_numpy(np.ascontiguousarray(words)).to(rec.device)
+                kk = min(k, nc * Cw)
+                kb = sdix.key_bits[s]
+                name = f"{phase} {label} shard {s} ({rec.device}) class nc={nc} nj={nj} rows={b_out}"
+                if rng:
+                    key, score = pdev.staged_lanes(
+                        scorer, rec, sdix._field_avg[rec.device], ones, jobs, sdix._aux_rec(scorer)[0][s],
+                        chunk=Cw, qterm_bits=QB, num_fields=1, num_chunks=nc, use_ranges=True,
+                    )
+                    res = check_merge(key, score, kk, f"{name} (range)", quiet=True, key_bits=kb)
+                    errs["merge_topk"] = max(errs["merge_topk"], res[0])
+                    checked["merge_topk"] += 1
+                    continue
+                tables = pdev.expand_chunks(jobs.reshape(b_out, nj, 3), Cw, nc)
+                if nc * Cw <= pdev._FUSED_MAX_LANES:
+                    err, ms, plain_ms = check_full(scorer, rec, tables, scalars, kk, name, kb)
+                    errs["full"] = max(errs["full"], err)
+                    checked["full"] += 1
+                else:
+                    err, ms, plain_ms = check_lanes(scorer, rec, tables, scalars, kk, name, kb)
+                    errs["lanes"] = max(errs["lanes"], err)
+                    errs["merge_topk"] = max(errs["merge_topk"], err)
+                    checked["lanes"] += 1
+                    checked["merge_topk"] += 1
+                if s == 0 and ci < 3 or ci == widest:
+                    log(f"{name}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"key_bits {kb}")
+    log(f"{phase} {label}: kernel against plain on {f'the {len(specs)} classes of shard 0 and ' if every else ''}"
         f"the widest class of each shard: {checked} (K1 / K3 + K5 / K5) calls checked, all ok")
     return checked
 
@@ -1848,7 +1901,8 @@ def sharded_graph_stats(sdix):
     device's cache of ``sdix``: keys captured so far and its pool's bytes."""
     c = pdev.metrics.snapshot()["counters"]
     per_dev = "; ".join(
-        f"{dev}: {len(g)} keys, pool {g.pool_bytes} B ({g.pool_bytes / 2**20:.1f} MiB)"
+        f"{dev}: {len(g)} keys ({g.captures} captures, {g.replays} replays so far), pool "
+        f"{g.pool_bytes} B ({g.pool_bytes / 2**20:.1f} MiB)"
         for dev, g in sdix._class_graphs.items()
     )
     return (f"class graphs {int(c.get('class_graph_captures', 0))} captured, "
@@ -1910,7 +1964,8 @@ def sharded_eager_check(sdix, submit, label):
 
 def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
     """Phase 3s: the doc-sharded engine on 4 doc shards of one card (see the
-    module docstring).  Returns the launch counts of its served windows."""
+    module docstring).  Returns the launch counts of its served windows and
+    the sharded snapshot."""
     k = 10
     launches = dict.fromkeys(("full", "lanes", "merge_topk"), 0)
 
@@ -2115,20 +2170,8 @@ def phase_sharded(ix, dix, windows, zipf, scorer, card, errs):
         f"ms, sharded eager {sum(ms_ for _c, ms_ in ev_e.values()):.3f} ms, single-device "
         f"{sum(ms_ for _c, ms_ in ev_d.values()):.3f} ms; {sharded_graph_stats(sdix)}")
 
-    n_cards = torch.cuda.device_count()
-    if n_cards > 1:
-        cards = make_mesh(1, n_cards)
-        sc = ShardedDeviceIndex(ix, cards)
-        got = with_format(sc, "f32").query_batch_async(windows[0], scorer, top_k=k).get_arrays()
-        want = with_format(sdix, "f32").query_batch_async(windows[0], scorer, top_k=k).get_arrays()
-        sdix.config = ix.config
-        err = assert_topk_agree(got[0], got[1], want[0], want[1])
-        log(f"3s a mesh over {n_cards} distinct cards {cards}: window 0 agrees with the one-card "
-            f"4-shard engine (max abs err {err:.3g})")
-    else:
-        log("3s a mesh over distinct cards: not run (1 card visible)")
     log(f"3s launches over its served windows: {launches}")
-    return launches
+    return launches, sdix
 
 
 # --------------------------------------------------------------------- #
@@ -2158,7 +2201,7 @@ def serve_pipelined(submit, n=8):
                 futs.pop(0).result()
         for f in futs:
             f.result()
-    torch.cuda.synchronize()
+    sync_cards()
     return time.perf_counter() - t0, lat_ms, out
 
 
@@ -2277,6 +2320,8 @@ def reset_z2o_counts():
     for counts in (fz.launches, pz.launches):
         for key in counts:
             counts[key] = 0
+    for counts in CARD_COUNTS:
+        counts.clear()
     pdev.metrics.reset()
 
 
@@ -2401,7 +2446,7 @@ def phase_z2o_main(card):
 def phase_sharded_z2o(ix, dix, windows, card):
     """Phase 4s: zero-to-one 50k on the doc-sharded engine, mesh (2, 2) on
     one card (see the module docstring).  Returns (K4's launches, largest
-    error)."""
+    error, the sharded snapshot)."""
     k = 10
     t = time.perf_counter()
     sz = ShardedDeviceIndex(ix, make_mesh(2, 2, devices=["cuda:0"] * 4))
@@ -2515,7 +2560,414 @@ def phase_sharded_z2o(ix, dix, windows, card):
         log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
             f"{plain_ms:.4f} ms, key_bits {sz.z2o_key_bits[0]}")
     assert n > 0
-    return counts["fused_z2o"], err_max
+    return counts["fused_z2o"], err_max, sz
+
+
+# --------------------------------------------------------------------- #
+# phases 3m, 4m: the doc-sharded engine over distinct cards              #
+# --------------------------------------------------------------------- #
+
+
+def card_launches():
+    """K1 / K3, K5 and K4 launches per card since the last reset:
+    {card index: {kernel: n}}."""
+    out = {}
+    for counts in CARD_COUNTS:
+        for key, n in counts.items():
+            name, index = key.split("@cuda:")
+            out.setdefault(int(index), {})[name] = n
+    return out
+
+
+def per_shard(counts, n):
+    """One card's launch counts (``card_launches``) over ``n`` shards on
+    it: each shard runs every class, so each count splits evenly."""
+    assert all(v % n == 0 for v in counts.values()), counts
+    return {key: v // n for key, v in counts.items()}
+
+
+def cards_in_use(n):
+    """The first ``n`` cards, their names and the pairs' peer access."""
+    cards = [torch.device("cuda", i) for i in range(n)]
+    peer = [[int(i == j or torch.cuda.can_device_access_peer(i, j)) for j in range(n)]
+            for i in range(n)]
+    names = sorted({torch.cuda.get_device_name(i) for i in range(n)})
+    return cards, f"{n} cards ({', '.join(names)}), peer access by pair {peer}"
+
+
+def build_on_cards(ix, mesh, cards, label):
+    """A ShardedDeviceIndex over ``mesh``: its build seconds and the bytes
+    it allocated on each card."""
+    sync_cards()
+    mem0 = [torch.cuda.memory_allocated(c) for c in cards]
+    t = time.perf_counter()
+    sdix = ShardedDeviceIndex(ix, mesh)
+    sync_cards()
+    build_s = time.perf_counter() - t
+    mem = [torch.cuda.memory_allocated(c) - m for c, m in zip(cards, mem0)]
+    log(f"{label} sharded snapshot on {mesh}: built in {build_s:.3f} s; bytes on each card "
+        f"{mem} ({', '.join(f'{m / 2**20:.1f}' for m in mem)} MiB)")
+    assert list(sdix._class_graphs) == cards
+    assert all(len(shards) == 1 for row in sdix._groups for _dev, shards in row)
+    return sdix
+
+
+def warm_up(sdix, submit, label):
+    """Two passes of the windows (``submit(i)``, i < 4) on ``sdix``:
+    sharded/dispatch per window, the first two capturing."""
+    pdev.metrics.reset()
+    disp = []
+    t = time.perf_counter()
+    for i in range(4):
+        h, ms = submit_timed(lambda: submit(i), "sharded/dispatch")
+        h.get_arrays()
+        disp.append(ms)
+    sync_cards()
+    log(f"{label} warm-up (2 passes): {time.perf_counter() - t:.1f} s; sharded/dispatch per window "
+        f"(ms, the first two capture) {', '.join(f'{v:.3f}' for v in disp)}; {sharded_graph_stats(sdix)}")
+
+
+def serve_turns(one, cards, submit, reset, counts_of, label, card):
+    """8 pipelined windows a turn (``submit(d, i)``) on the one-card
+    engine ``one``, the engine over distinct cards, again, and ``one``:
+    ms/window, p50, host phases, launches, launches per card (each card's
+    equal to the one-card engine's per shard), slots equal to the first
+    turn's in every turn.  Returns the first over-cards turn's arrays."""
+    n = one.n_shards * int(one.mesh.shape["data"])
+    ms_turn = {"one card": [], "cards": []}
+    disp_turn = {"one card": [], "cards": []}
+    ref = first = per_cell = total = None
+    for turn, d in (("one card", one), ("cards", cards), ("cards", cards), ("one card", one)):
+        reset()
+        dt, lat_ms, out = serve_pipelined(lambda i, d=d: submit(d, i))
+        counts, by_card = counts_of(), card_launches()
+        hist = pdev.metrics.snapshot()["histograms"]
+        ms_turn[turn].append(1e3 * dt / 8)
+        disp_turn[turn].append(hist["sharded/dispatch"]["mean_us"] / 1e3)
+        log(f"{label} {turn} ({d.mesh}): 8 windows x {WINDOW} queries on {card}: {1e3 * dt / 8:.3f} "
+            f"ms/window, {8 * WINDOW / dt:.1f} QPS, window latency p50 {np.median(lat_ms):.1f} ms; "
+            f"host phases (mean ms): {sharded_host_phases()}; launches {counts}; per card {by_card}")
+        assert total in (None, counts), (total, counts)
+        total = counts
+        if turn == "one card":
+            cell = per_shard(by_card[0], n)
+            assert per_cell in (None, cell), (per_cell, cell)
+            per_cell = cell
+        else:
+            assert by_card == dict.fromkeys(range(n), per_cell), (by_card, per_cell)
+            first = first or out
+        ref = ref or out
+        for i, arrays in enumerate(out):
+            np.testing.assert_array_equal(arrays[1], ref[i % 2][1], err_msg=f"{label} {turn}")
+    log(f"{label} 8 pipelined windows a turn on {card}: ms/window one card "
+        f"{', '.join(f'{v:.3f}' for v in ms_turn['one card'])}, {n} cards "
+        f"{', '.join(f'{v:.3f}' for v in ms_turn['cards'])}; sharded/dispatch mean ms one card "
+        f"{', '.join(f'{v:.3f}' for v in disp_turn['one card'])}, {n} cards "
+        f"{', '.join(f'{v:.3f}' for v in disp_turn['cards'])}; slots equal, launches equal, each "
+        f"card's launches those of a shard of the one-card engine {per_cell}")
+    return first
+
+
+def gather_times(sdix, submit, reps=5):
+    """One window (``submit()``) with each data row's gather and merge
+    timed alone, ``reps`` times on the same rows with Python's collector
+    off (a collection stalls the host between the events): every card
+    synchronised first, then CUDA events on the row's first card around
+    the copies of the other cards' rows (made apart, for their time) and
+    around the gather and merge itself.  Returns [(bytes from other cards,
+    median copy ms, median gather + merge ms)], a row of each dispatch."""
+    real = sdix._gather_merge
+    out = []
+
+    def timed(d, parts, k, fmt):
+        dev0 = sdix.mesh.devices[d, 0]
+        remote = [t for s, pair in enumerate(parts) if sdix.mesh.devices[d, s] != dev0 for t in pair]
+        copy_ms, ms = [], []
+        with torch.cuda.device(dev0):
+            for _ in range(reps):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                sync_cards()
+                ev[0].record()
+                copies = [t.to(dev0, non_blocking=True) for t in remote]
+                ev[1].record()
+                sync_cards()
+                ev[2].record()
+                rows = real(d, parts, k, fmt)
+                ev[3].record()
+                sync_cards()
+                del copies
+                copy_ms.append(ev[0].elapsed_time(ev[1]))
+                ms.append(ev[2].elapsed_time(ev[3]))
+        nbytes = sum(t.numel() * t.element_size() for t in remote)
+        out.append((nbytes, float(np.median(copy_ms)), float(np.median(ms))))
+        return rows
+
+    sdix._gather_merge = timed
+    gc.disable()
+    try:
+        submit().get_arrays()
+    finally:
+        gc.enable()
+        del sdix._gather_merge
+    return out
+
+
+def log_gather(label, times_cards, times_one):
+    for (nbytes, copy_ms, ms), (_b, _c, ms1) in zip(times_cards, times_one):
+        log(f"{label} gather of one row: {nbytes} B from the other cards copied in {copy_ms:.4f} ms "
+            f"({nbytes / max(copy_ms, 1e-6) / 1e6:.1f} GB/s), gather + merge {ms:.4f} ms; one card: "
+            f"gather + merge {ms1:.4f} ms (CUDA events on the row's first card, medians of 5)")
+
+
+def peer_rates(cards, nbytes=256 << 20):
+    """GB/s of one ``nbytes`` copy from each other card to ``cards[0]``
+    through ``Tensor.to`` (the gather's copy), median of 3: a peer copy
+    over NVLink runs at hundreds of GB/s, one staged through the host at
+    tens."""
+    rates = []
+    dst = cards[0]
+    for src in cards[1:]:
+        x = torch.empty(nbytes // 4, dtype=torch.int32, device=src)
+        times = []
+        with torch.cuda.device(dst):
+            for _ in range(4):
+                sync_cards()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                y = x.to(dst, non_blocking=True)
+                b.record()
+                sync_cards()
+                times.append(a.elapsed_time(b))
+                del y
+        rates.append(nbytes / float(np.median(times[1:])) / 1e6)
+        del x
+    return rates
+
+
+def same_rows(one, cards, fmt, submit, label):
+    """One window in ``fmt`` (``submit(d)``) on both engines: arrays and
+    every dispatch's packed rows bit-equal.  Returns the arrays."""
+    hs = [submit(with_format(d, fmt)) for d in (one, cards)]
+    a1, a4 = (h.get_arrays() for h in hs)
+    for x, y in zip(a1, a4):
+        if x is None:
+            assert y is None
+            continue
+        np.testing.assert_array_equal(x, y, err_msg=f"{label} ({fmt})")
+    n = 0
+    for rows1, rows4 in zip(hs[0]._packed, hs[1]._packed):
+        for d, (p1, p4) in enumerate(zip(rows1, rows4)):
+            assert p4.device == cards.mesh.devices[d, 0], (p4.device, d)
+            assert torch.equal(p1.cpu(), p4.cpu()), f"{label} ({fmt}): packed rows differ"
+            n += 1
+    log(f"{label} ({fmt}): arrays and the {n} packed row tensors bit-equal to the one-card engine's")
+    return a4
+
+
+def busy_per_card(label, submits):
+    """Device busy a window per card (torch.profiler, by device index) of
+    each engine's window (``submits``: {name: submit(i)})."""
+    parts = []
+    for name, submit in submits.items():
+        per_card = {}
+        log(f"{label} one window ({name}), profiled:")
+        profile_windows(submit, n=2, per_card=per_card)
+        parts.append(f"{name}: " + ", ".join(f"cuda:{i} {ms:.3f}" for i, ms in sorted(per_card.items())))
+    log(f"{label} device busy a window per card (ms): {'; '.join(parts)}")
+
+
+def phase_cards(ix, gix, one, windows, zipf, scorer, card, errs):
+    """Phase 3m: phase 3's index over distinct cards (see the module
+    docstring).  Mutates ``ix`` at its end: run it after every phase that
+    reads phase 3's index."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"3m phase 3's index over distinct cards: not run ({n_cards} card visible)")
+        return
+    n = min(n_cards, 4)
+    k = 10
+    cards, desc = cards_in_use(n)
+    log(f"3m {n_cards} cards visible; make_mesh(1, {n}) over {desc}")
+    if one.n_shards != n:
+        one = ShardedDeviceIndex(ix, make_mesh(1, n, devices=["cuda:0"] * n))
+    rates = peer_rates(cards)
+    log(f"3m a 256 MiB copy to cuda:0 through Tensor.to (the gather's copy) from "
+        + ", ".join(f"{c}: {r:.1f} GB/s" for c, r in zip(cards[1:], rates)) + " (medians of 3)")
+    sm = build_on_cards(ix, make_mesh(1, n), cards, "3m")
+    assert sm.key_bits == one.key_bits and torch.cuda.current_device() == 0
+
+    def submit(d, i):
+        return d.query_batch_async(windows[i % 2], scorer, top_k=k)
+
+    warm_up(sm, lambda i: submit(sm, i), "3m")
+    out = serve_turns(one, sm, submit, reset_bm25_counts, bm25_counts, "3m", card)
+    log_gather("3m", gather_times(sm, lambda: submit(sm, 0)), gather_times(one, lambda: submit(one, 0)))
+    q = lambda d, w: d.query_batch_async(w, scorer, top_k=k)  # noqa: E731
+    for wi, w in enumerate(windows):
+        for fmt in ("f32", "slots20"):
+            same_rows(one, sm, fmt, lambda d: q(d, w), f"3m window {wi}")
+    one.config = sm.config = ix.config
+    _s, slots, keys = out[0]
+    recall = bm25_recall(ix, windows[0][:256], slots[:256], keys[:256], k)
+    log(f"3m recall@{k} of the rows over {n} cards against the f64 oracle on 256 queries: {recall!r}")
+    assert recall >= 0.999, recall
+
+    # The head terms (K3 + K5 on every card) and 3r's range window.
+    vocab, cdf = zipf
+    head = [vocab[i] for i in range(8)] + [f"{vocab[i]} {vocab[i + 8]}" for i in range(8)]
+    same_rows(one, sm, "f32", lambda d: q(d, head), "3m head-term window")
+    w, rq = range_window(windows[0])
+    runs = []
+    for run, d in (("cold", sm), ("one card", one), ("warm", sm), ("warm", sm), ("one card", one)):
+        reset_bm25_counts()
+        t = time.perf_counter()
+        h, disp_ = submit_timed(lambda: q(with_format(d, "f32"), w), "sharded/dispatch")
+        h.get_arrays()
+        sync_cards()
+        runs.append((run, 1e3 * (time.perf_counter() - t), disp_, card_launches()))
+        del h
+    assert all(c == runs[0][3] for run, _a, _b, c in runs if run != "one card"), runs
+    assert runs[0][3] == dict.fromkeys(range(n), per_shard(runs[1][3][0], n)), runs
+    planned, fallback = sm.plan_batch(w, TOK, scorer)
+    range_host = sorted(set(fallback) & set(rq))
+    assert planned[4][rq].all() and not range_host, range_host
+    log(f"3m range window ({len(w)} queries, {len(rq)} with a range term) ms submit to drained / "
+        f"sharded/dispatch ms, {n} cards cold, then one card and {n} cards warm in turns: "
+        + "; ".join(f"{run} {a:.3f} / {b:.3f}" for run, a, b, _c in runs)
+        + f"; launches per card {runs[0][3]}, one card {runs[1][3]}; host rows {len(fallback)} "
+        f"({len(range_host)} of range queries); {sharded_graph_stats(sm)}")
+    same_rows(one, sm, "f32", lambda d: q(d, w), "3m range window")
+    one.config = sm.config = ix.config
+
+    # Every kernel of the path against plain on each card.
+    for label, queries in (("window 0", windows[0]), ("head-term window", head), ("range window", w)):
+        check_sharded_classes(sm, queries, scorer, k, errs, label, every=False, phase="3m")
+    busy_per_card("3m", {f"{n} cards": lambda i: submit(sm, i), "one card": lambda i: submit(one, i)})
+
+    # The template graph on the last card against 3g's on cuda:0.
+    last = DeviceIndex(ix, device=cards[-1])
+    assert last.load_templates(MANIFEST) == 1 and last.prewarm(scorer) == 1
+    assert torch.cuda.current_device() == 0
+    pdev.metrics.reset()
+    k1 = fq.device_launches.get(f"full@{cards[-1]}", 0)
+    for _ in range(2):
+        for wi, w_ in enumerate(windows):
+            h0, hl = gix.query_batch_async(w_, scorer, top_k=k), last.query_batch_async(w_, scorer, top_k=k)
+            for x, y in zip(h0.get_arrays(), hl.get_arrays()):
+                if x is not None:
+                    np.testing.assert_array_equal(x, y, err_msg=f"3m template window {wi}")
+            assert torch.equal(h0._packed.cpu(), hl._packed.cpu()), f"3m template window {wi}"
+    ctr = pdev.metrics.snapshot()["counters"]
+    assert ctr.get("template_graph_replays") == 8 and not ctr.get("template_refreezes"), ctr
+    k1 = fq.device_launches.get(f"full@{cards[-1]}", 0) - k1
+    log(f"3m a DeviceIndex on {cards[-1]} prewarmed from {os.path.relpath(MANIFEST, ROOT)}: 4 windows "
+        f"on its template graph, packed rows bit-equal to 3g's on cuda:0 (8 replays in all, "
+        f"K1 launched {k1} times on {cards[-1]})")
+    assert k1 > 0
+    del last
+
+    # A mutation: documents added and removed, a new snapshot over the
+    # cards; the old one is freed on every card with the collector off.
+    rng = np.random.default_rng(SEED + 5)
+    added = [" ".join(vocab[j] for j in rng.integers(100, 2000, 8)) for _ in range(1000)]
+    new_keys = list(range(N_DOCS, N_DOCS + len(added)))
+    removed = list(range(7, N_DOCS, 10007))
+    ix.attach_mesh(sm.mesh)
+    t = time.perf_counter()
+    ix.add_documents_columnar(new_keys, [added])
+    for key in removed:
+        ix.remove_document(key)
+    sync_cards()
+    before = [torch.cuda.memory_allocated(c) for c in cards]
+    gc.disable()
+    try:
+        ref = weakref.ref(sm)
+        del sm
+        assert ref() is None, "the replaced snapshot is still referenced"
+        freed = [b - torch.cuda.memory_allocated(c) for c, b in zip(cards, before)]
+        fresh = ix.sharded_index()
+        sync_cards()
+    finally:
+        gc.enable()
+    log(f"3m mutation: {len(added)} documents added, {len(removed)} removed, a new snapshot over "
+        f"{fresh.mesh} in {time.perf_counter() - t:.3f} s; the old one freed with the collector off: "
+        f"{freed} B on each card")
+    assert all(f > 0 for f in freed), freed
+    _ORACLE.clear()  # the index changed
+    sample = windows[0][:96] + [" ".join(text.split(" ")[:2]) for text in added[:32]]
+    s_, slots, keys = with_format(fresh, "f32").query_batch_async(sample, scorer, top_k=k).get_arrays()
+    recall = bm25_recall(ix, sample, slots, keys, k)
+    valid = keys[slots >= 0].astype(np.int64)
+    log(f"3m after the mutation: recall@{k} against the f64 oracle on {len(sample)} queries "
+        f"{recall!r}; {int((valid >= N_DOCS).sum())} rows hold added documents, "
+        f"{int(np.isin(valid, removed).sum())} removed ones")
+    assert recall >= 0.999 and (valid >= N_DOCS).any() and not np.isin(valid, removed).any()
+    ix.attach_mesh(None)
+    del fresh
+
+
+def phase_cards_z2o(ix, windows, one, card):
+    """Phase 4m: zero-to-one 50k on mesh (2, 2) over four cards against the
+    same mesh on one card (phase 4s's snapshot, ``one``).  Returns K4's
+    largest error against plain on the cards."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        log(f"4m zero-to-one 50k over four cards: not run ({n_cards} card visible, needs 4)")
+        return 0.0
+    k = 10
+    cards, desc = cards_in_use(4)
+    log(f"4m make_mesh(2, 2) over {desc}")
+    sm = build_on_cards(ix, make_mesh(2, 2), cards, "4m")
+    for d in (one, sm):
+        with_format(d, "slots")
+
+    def submit(d, i):
+        return d.query_batch_z2o(windows[i % 2], top_k=k)
+
+    warm_up(sm, lambda i: submit(sm, i), "4m")
+    serve_turns(one, sm, submit, reset_z2o_counts, z2o_counts, "4m", card)
+    log_gather("4m", gather_times(sm, lambda: submit(sm, 0)), gather_times(one, lambda: submit(one, 0)))
+    for wi, w in enumerate(windows):
+        same_rows(one, sm, "slots", lambda d: d.query_batch_z2o(w, top_k=k), f"4m window {wi}")
+    sample = windows[0][:256]
+    scores, slots, keys = same_rows(one, sm, "f32", lambda d: d.query_batch_z2o(sample, top_k=k),
+                                    "4m 256 queries")
+    recall, recall_tie, rel = z2o_oracle_check(ix, sample, scores, slots, keys, k)
+    log(f"4m recall@{k} against the f64 oracle on {len(sample)} queries: {recall!r} (tie-aware "
+        f"{recall_tie!r}), max score rel err {rel:.3g}")
+    assert recall_tie >= 0.999, recall_tie
+    with_format(sm, "slots")
+    with_format(one, "slots")
+    busy_per_card("4m", {"4 cards": lambda i: submit(sm, i), "one card": lambda i: submit(one, i)})
+
+    # K4 against plain on each card: the widest K4 class of its cell.
+    jquery, words, qlen, max_chunks, njobs, _fb, _lock = sm.plan_batch_z2o(windows[0], TOK)
+    specs, _layout, buf, qcat = sm._pack_z2o(len(windows[0]), jquery, words, max_chunks, njobs, qlen)
+    F, Cw = sm.num_fields, sm.CHUNK
+    offs = np.cumsum([0] + [b_pad * nj * 4 for b_pad, _bo, nj, _nc in specs])
+    qoffs = np.cumsum([0] + [b_pad for b_pad, _bo, _nj, _nc in specs])
+    fused = [ci for ci, (_bp, _bo, _nj, nc) in enumerate(specs)
+             if pz.fused_route(nc, Cw, F, sm.local_slots < (1 << 26))]
+    ci = max(fused, key=lambda c: specs[c][3])
+    b_pad, b_out, nj, nc = specs[ci]
+    err_max = 0.0
+    for d in range(2):
+        for s in range(2):
+            rec = sm._rec_cells[d][s]
+            with torch.cuda.device(rec.device):
+                w4 = buf[s, d, offs[ci] : offs[ci + 1]].reshape(b_pad, nj, 4)[:b_out]
+                jobs = torch.from_numpy(np.ascontiguousarray(w4)).to(rec.device)
+                ql = torch.from_numpy(np.ascontiguousarray(qcat[d, qoffs[ci] : qoffs[ci] + b_out]))
+                c_start, c_skip, c_len, c_qterm, c_rank, c_score = pz.expand_chunks_z2o(jobs, Cw, nc)
+                args = (rec, c_start, c_skip, c_len, c_qterm, c_score, c_rank, ql.to(rec.device))
+                label = f"4m row {d} shard {s} ({rec.device}) z2o class nc={nc} nj={nj} rows={b_out}"
+                err, ms, plain_ms, dev_ms = check_z2o(args, Cw, min(k, nc * Cw), F, label,
+                                                      sm.z2o_key_bits[s])
+            err_max = max(err_max, err)
+            log(f"{label}: ok, max_abs_err {err:.3g}, kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+                f"plain {plain_ms:.4f} ms, key_bits {sm.z2o_key_bits[s]}")
+    del sm
+    return err_max
 
 
 def main():
@@ -2547,18 +2999,21 @@ def main():
     launches["merge_topk"] += phase_custom(ix, dix, windows[0][:256])
     launches["merge_topk"] += phase_ranges(ix, dix, windows[0], scorer, win_errs, times)
     phase_z2o_1m(ix, dix, windows[0])
-    shard_launches = phase_sharded(ix, dix, windows, zipf, scorer, card, errs)
+    shard_launches, one_card = phase_sharded(ix, dix, windows, zipf, scorer, card, errs)
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += shard_launches[key]
     prune_launches = phase_prune(ix, *zipf, card)
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += prune_launches[key]
     light_launches, light = phase_light(ix, dix, gix, windows, scorer, card)
-    del dix, gix, ix
+    phase_cards(ix, gix, one_card, windows, zipf, scorer, card, errs)
+    del dix, gix, ix, one_card
     z2o_counts_, z2o_err, z2o_times, z2o_run = phase_z2o_main(card)
-    sz_launches, sz_err = phase_sharded_z2o(*z2o_run, card)
+    sz_launches, sz_err, sz = phase_sharded_z2o(*z2o_run, card)
+    cards_z2o_err = phase_cards_z2o(z2o_run[0], z2o_run[2], sz, card)
+    del sz
     launches["fused_z2o"] = z2o_counts_["fused_z2o"] + sz_launches
-    win_errs["fused_z2o"] = max(z2o_err, sz_err)
+    win_errs["fused_z2o"] = max(z2o_err, sz_err, cards_z2o_err)
     times["fused_z2o"] = z2o_times
     launches["probe_add"] = probe_launches
     win_errs["probe_add"] = 0.0

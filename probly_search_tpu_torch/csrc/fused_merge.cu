@@ -45,6 +45,7 @@
 #include <stdint.h>
 
 #include "block_merge.cuh"
+#include "device_scope.cuh"
 
 using namespace blockmerge;
 
@@ -423,7 +424,8 @@ extern "C" {
 // opt-in maximum (less its static shared memory); returns the dynamic bytes
 // a block may use (< 0: error).
 int merge_topk_init(int device) {
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return -1;
   int smem_max = 0;
   if (cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
       cudaSuccess)
@@ -444,8 +446,8 @@ int merge_topk(int device, const int32_t* key, const float* score, int B, int L,
                int qterm_bits, int excl, int key_bits, int path, long long smem, void* ws,
                long long ws_bytes, float* out_s, int32_t* out_d, void* stream) {
   if (B == 0) return 0;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   cudaStream_t st = (cudaStream_t)stream;
   if (path == 0) {
     merge_block_kernel<<<B, kThreads, (size_t)smem, st>>>(key, score, L, k, qterm_bits,

@@ -42,6 +42,7 @@
 #include <stdint.h>
 
 #include "block_merge.cuh"
+#include "device_scope.cuh"
 
 namespace {
 
@@ -404,7 +405,8 @@ extern "C" {
 // Once per device: lift the full phase's shared-memory cap to the card's
 // opt-in maximum; returns the dynamic bytes a block may use (< 0: error).
 int fused_query_init(int device) {
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return -1;
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
     return -1;
@@ -420,12 +422,12 @@ int fused_query_init(int device) {
 }
 
 // Each entry launches on ``stream`` of CUDA device ``device`` and returns
-// cudaGetLastError() (0 = ok).  The device is set here because this library
-// carries its own CUDA runtime, whose current device the caller's runtime
-// does not set.  ``ring`` and ``smem`` are the full phase's staging depth and
-// dynamic shared memory (full_launch), within what fused_query_init allowed;
-// ``cand`` is null, or [B, cand_words(k)] words of device memory for a k
-// whose words do not fit shared memory.
+// cudaGetLastError() (0 = ok).  The device is selected for the call only
+// (device_scope.cuh): the caller's current device is left as it was.
+// ``ring`` and ``smem`` are the full phase's staging depth and dynamic shared
+// memory (full_launch), within what fused_query_init allowed; ``cand`` is
+// null, or [B, cand_words(k)] words of device memory for a k whose words do
+// not fit shared memory.
 int fused_query_full(int device, const int32_t* rec, long long rec_stride,
                      const int32_t* c_start, const int32_t* c_skip,
                      const int32_t* c_len, const int32_t* c_qterm,
@@ -434,7 +436,8 @@ int fused_query_full(int device, const int32_t* rec, long long rec_stride,
                      int excl, int key_bits, int ring, long long smem, void* cand,
                      float* out_s, int32_t* out_d, void* stream) {
   if (B_rows == 0) return 0;
-  cudaError_t e = cudaSetDevice(device);
+  const probly::DeviceScope scope(device);
+  cudaError_t e = scope.error();
   if (e != cudaSuccess) return (int)e;
   QueryArgs a = make_args(rec, rec_stride, c_start, c_skip, c_len, c_qterm,
                           c_scale, scalars, NC, C, F, k, qterm_bits, k1, b, excl);
@@ -459,8 +462,8 @@ int fused_query_lanes(int device, const int32_t* rec, long long rec_stride,
                       float* out_s, int32_t* out_k, void* stream) {
   if (B == 0 || NC == 0) return 0;
   if (C < 1 || (C & (C - 1))) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   QueryArgs a = make_args(rec, rec_stride, c_start, c_skip, c_len, c_qterm,
                           c_scale, scalars, NC, C, F, 0, qterm_bits, k1, b, excl);
   const dim3 grid(NC, B);
@@ -477,7 +480,8 @@ const char* fused_query_error_string(int code) {
 
 // Resident full-phase blocks per SM at L lanes and `smem` bytes (-1: error).
 int fused_query_occupancy(int device, int L, long long smem) {
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return -1;
   int n = -1, v = 0;
   const int want = full_variant(L);
 #define OCC(NT, M, B)                                                                       \

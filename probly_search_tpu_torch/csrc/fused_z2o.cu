@@ -65,6 +65,7 @@
 #include <stdint.h>
 
 #include "block_merge.cuh"
+#include "device_scope.cuh"
 
 namespace {
 
@@ -433,7 +434,8 @@ extern "C" {
 // use beside its static shared memory; returns those dynamic bytes (< 0:
 // error).
 int fused_z2o_init(int device) {
-  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return -1;
   int optin = 0;
   if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
       cudaSuccess)
@@ -458,13 +460,13 @@ int fused_z2o_init(int device) {
 }
 
 // Launches on ``stream`` of CUDA device ``device``, one CTA per row of B, and
-// returns cudaGetLastError() (0 = ok).  The device is set here because this
-// library carries its own CUDA runtime, whose current device the caller's
-// runtime does not set.  ``smem`` is the call's dynamic shared memory
-// (z2o_launch), within what fused_z2o_init allowed; ``cand`` is null, or
-// [B, cand_words(k)] words of device memory for a k whose words do not fit
-// beside the row.  Returns cudaErrorInvalidValue for shapes the kernel does
-// not take (the wrapper checks them first).
+// returns cudaGetLastError() (0 = ok).  The device is selected for the call
+// only (device_scope.cuh): the caller's current device is left as it was.
+// ``smem`` is the call's dynamic shared memory (z2o_launch), within what
+// fused_z2o_init allowed; ``cand`` is null, or [B, cand_words(k)] words of
+// device memory for a k whose words do not fit beside the row.  Returns
+// cudaErrorInvalidValue for shapes the kernel does not take (the wrapper
+// checks them first).
 int fused_z2o(int device, const int32_t* rec, long long rec_stride, const int32_t* c_start,
               const int32_t* c_skip, const int32_t* c_len, const int32_t* c_qterm,
               const float* c_score, const int32_t* c_rank, const float* qlen, int B, int NC,
@@ -472,8 +474,8 @@ int fused_z2o(int device, const int32_t* rec, long long rec_stride, const int32_
               int32_t* out_d, void* stream) {
   if (B == 0) return 0;
   if (!z2o_ok(NC, C, F, k, key_bits, smem, cand == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
+  const probly::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const Z2oArgs a = make_z2o_args(rec, rec_stride, c_start, c_skip, c_len, c_qterm, c_score,
                                   c_rank, qlen, NC, C, F, k, key_bits, cand);
   cudaStream_t st = (cudaStream_t)stream;

@@ -491,14 +491,15 @@ def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
 def _launch_counters():
     """The kernel and program launch counters a window step can move (plain
     int dicts of the wrappers): K1 / K3 by phase and by chunk width, K5 and
-    its calls by path, K4, and the zero-to-one torch programs.  Capturing a
-    step into a CUDA graph moves them though nothing ran; the graph takes
-    that back out (``_uncounted``) and adds it again on every replay."""
+    its calls by path, K4, the zero-to-one torch programs, then K1 / K3, K5
+    and K4 by card.  Capturing a step into a CUDA graph moves them though
+    nothing ran; the graph takes that back out (``_uncounted``) and adds it
+    again on every replay."""
     from ..ops import z2o_device  # imports this module: not at the top
 
     return (
         _fq.launches, _fq.chunk_launches, _fm.launches, _fm.path_calls, _fz.launches,
-        z2o_device.launches,
+        z2o_device.launches, _fq.device_launches, _fm.device_launches, _fz.device_launches,
     )
 
 
@@ -532,15 +533,21 @@ class WindowGraph:
     tensors (``rec``, ``field_avg``), the scorer's constants, k and the
     result format are baked into the graph: the template key carries the
     scorer's ``device_cache_key``, k and the format, and the graph lives on
-    the ``DeviceIndex`` whose tensors it reads.  A failed capture or replay
-    raises; nothing falls back to the eager step."""
+    the ``DeviceIndex`` whose tensors it reads.  The capture runs on a side
+    stream of the words' card, whatever card is current: torch's shared
+    default capture stream lives on the card that was current when it was
+    first made, and a capture there would miss a step that runs on another
+    card.  A failed capture or replay raises; nothing falls back to the
+    eager step."""
 
     def __init__(self, step, words) -> None:
         self.words = words
         self.graph = torch.cuda.CUDAGraph()
 
         def capture():
-            with torch.cuda.graph(self.graph, capture_error_mode="relaxed"):
+            with torch.cuda.device(words.device), torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(words.device), capture_error_mode="relaxed"
+            ):
                 return step(words)
 
         self.packed, self._delta = _uncounted(capture)
@@ -637,8 +644,10 @@ class ClassGraphs:
     ``_get_class_step``, ``_get_window_step`` and ``_get_z2o_window_step``.
     A class's graph is captured the first time its key is seen (counter
     ``class_graph_captures``) and replayed ever after
-    (``class_graph_replays``); ``pool_bytes`` is the memory the captures
-    reserved.
+    (``class_graph_replays``); ``captures`` and ``replays`` count the same
+    for this cache alone (one a card on a mesh), ``pool_bytes`` is the
+    memory the captures reserved.  Capture, replays and the ``_done``
+    event all run on ``device``, whatever device is current.
 
     Every graph allocates in one shared pool, so a later capture may place
     its tensors in an earlier graph's freed temporaries: each replay's
@@ -654,7 +663,7 @@ class ClassGraphs:
         # Recorded after the last window's copies (a CUDA device's only).
         self._done = torch.cuda.Event() if self.device.type == "cuda" else None
         self._pool = self._stream = None
-        self.pool_bytes = 0
+        self.pool_bytes = self.captures = self.replays = 0
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -692,6 +701,7 @@ class ClassGraphs:
         if graph is None:
             graph = self._graphs[key] = self._capture(make_step(), pieces)
         metrics.inc("class_graph_replays", 1)
+        self.replays += 1
         return graph.replay(pieces)
 
     def _capture(self, step, pieces) -> ClassGraph:
@@ -709,6 +719,7 @@ class ClassGraphs:
         graph = ClassGraph(step, sum(p.numel() for p in pieces), self.device, self._pool, self._stream)
         self.pool_bytes += torch.cuda.memory_reserved(index) - before
         metrics.inc("class_graph_captures", 1)
+        self.captures += 1
         return graph
 
 

@@ -20,7 +20,7 @@ kernel's shared memory after phase "lanes" (``run=C``, ``excl``,
 
 ``launches`` counts calls that launched the kernels; it moves only where
 the wrapper launches them, never on the CPU path.  ``path_calls`` counts the
-calls per path.
+calls per path, ``device_launches`` per card (``"merge_topk@cuda:1"``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from .merge import merge_scores_topk_presorted
 
 launches = {"merge_topk": 0}
 path_calls = {"block": 0, "radix": 0}
+device_launches: dict = {}
 PATHS = ("block", "radix")  # the C launcher's path numbers
 
 # Largest k the kernel takes (the radix path's last block orders <= 4,096
@@ -190,4 +191,6 @@ def merge_scores_topk_fused(
         )
     launches["merge_topk"] += 1
     path_calls[plan.path] += 1
+    key = f"merge_topk@cuda:{index}"
+    device_launches[key] = device_launches.get(key, 0) + 1
     return out_s, out_d

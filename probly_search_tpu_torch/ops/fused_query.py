@@ -8,8 +8,11 @@ the hand-written kernel of ``csrc/fused_query.cu``; on a CPU tensor it runs
 tests and the chip smoke also hold the kernel against.
 
 ``launches`` counts kernel launches per phase, ``chunk_launches`` the same
-launches by phase and chunk width (``"full@256"``: a light class's).  They
-move only where the wrapper launches a kernel, never on the CPU path.
+launches by phase and chunk width (``"full@256"``: a light class's) and
+``device_launches`` by phase and card (``"full@cuda:1"``).  They move only
+where the wrapper launches a kernel, never on the CPU path.  A launch on any
+card leaves the caller's current device as it was (the C entries select
+their device for the call only).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from .merge import INVALID_KEY, merge_scores_topk_presorted
 
 launches = {"full": 0, "lanes": 0}
 chunk_launches: dict = {}
+device_launches: dict = {}
 
 # Most chunks of record rows the full phase stages in shared memory at once.
 MAX_RING = 4
@@ -322,4 +326,6 @@ def fused_query_topk(
     launches[phase] += 1
     key = f"{phase}@{C}"
     chunk_launches[key] = chunk_launches.get(key, 0) + 1
+    key = f"{phase}@cuda:{index}"
+    device_launches[key] = device_launches.get(key, 0) + 1
     return out_s, out_d

@@ -20,8 +20,9 @@ What the kernel computes per query row of L = NC * C lanes:
   score, so (k1, k2) order is the oracle's stable (doc, score desc,
   enumeration) order.
 
-``launches`` counts kernel launches; it moves only where the wrapper
-launches the kernel, never on the CPU path.
+``launches`` counts kernel launches, ``device_launches`` the same per card
+(``"fused_z2o@cuda:1"``); they move only where the wrapper launches the
+kernel, never on the CPU path.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from .fused_query import _check, cand_words, check_rec, check_tables
 from .merge import _shift_left, _shift_right, segmented_scan
 
 launches = {"fused_z2o": 0}
+device_launches: dict = {}
 
 # The JAX engine's caps for the fused branch (staged program beyond), kept
 # so that the same classes take the same route on both engines.
@@ -250,4 +252,6 @@ def fused_z2o_topk(
     if err:
         raise RuntimeError(f"fused_z2o launch failed: {lib.fused_query_error_string(err).decode()}")
     launches["fused_z2o"] += 1
+    key = f"fused_z2o@cuda:{index}"
+    device_launches[key] = device_launches.get(key, 0) + 1
     return out_s, out_d

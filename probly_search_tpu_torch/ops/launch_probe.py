@@ -5,7 +5,10 @@ repo's probe of the fixed cost of one kernel launch.  On a CUDA tensor
 ``probe_add`` launches the hand-written kernel of ``csrc/launch_probe.cu``
 (one 16-B word a thread; a scalar kernel for a pointer that is not 16-B
 aligned); on a CPU tensor it runs ``probe_add_reference``, the plain torch
-version.  ``launches`` counts kernel launches, never the CPU path.
+version.  ``launches`` counts kernel launches, never the CPU path.  The
+kernel launches on the current device, so the wrapper selects the tensor's
+card for the call only (``torch.cuda.device``) and leaves the caller's as
+it was.
 
 The wrapper keeps its host cost small: the library's entry point is looked
 up once, the stream is read as a raw handle, and it checks only what the

@@ -890,12 +890,10 @@ class ShardedDeviceIndex:
         dev0 = self.mesh.devices[d, 0]
         s_parts, d_parts = [], []
         for s, (sc, gl) in enumerate(parts):
-            dev = self.mesh.devices[d, s]
-            if dev != dev0:
-                # Order the copy behind the producing stream's work.
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(dev))
-                torch.cuda.current_stream(dev0).wait_event(ev)
+            if self.mesh.devices[d, s] != dev0:
+                # Card to card (torch enables peer access at the first
+                # copy), on the producing card's current stream behind its
+                # work; torch orders both cards' streams around the copy.
                 sc, gl = sc.to(dev0, non_blocking=True), gl.to(dev0, non_blocking=True)
             s_parts.append(sc)
             d_parts.append(gl)
@@ -940,19 +938,25 @@ class ShardedDeviceIndex:
             off += len(t)
         return list(zip(rows, ends if len(ends) > 1 else ends * len(spans)))
 
-    def _run_groups(self, d: int, classes_of, k: int, fmt: str):
-        """Data row ``d`` on the class graphs: each group's classes
-        (``classes_of(dev, shards)``, as ``ClassGraphs.run`` takes them) on
-        its device's cache, each output copied out before the next replay,
-        then the row's gather and merge.  Returns its packed rows."""
-        parts = [None] * self.n_shards
-        for dev, shards in self._groups[d]:
-            outs = self._class_graphs[dev].run(classes_of(dev, shards))
-            scores = torch.cat([o[0] for o in outs], dim=1)  # [G, SB, k]
-            slots = torch.cat([o[1] for o in outs], dim=1)
-            for g, s in enumerate(shards):
-                parts[s] = (scores[g], slots[g])
-        return self._gather_merge(d, parts, k, fmt)
+    def _run_groups(self, classes_of, k: int, fmt: str):
+        """The window on the class graphs: every group's classes
+        (``classes_of(d, dev, shards)``, as ``ClassGraphs.run`` takes them)
+        on its device's cache, each output copied out before the next
+        replay; then each data row's gather and merge.  Every group of
+        every row is enqueued before any gather waits on one, so the cards
+        of a mesh over several compute at once.  Returns the packed rows
+        per data row."""
+        rows = []
+        for d, groups in enumerate(self._groups):
+            parts = [None] * self.n_shards
+            for dev, shards in groups:
+                outs = self._class_graphs[dev].run(classes_of(d, dev, shards))
+                scores = torch.cat([o[0] for o in outs], dim=1)  # [G, SB, k]
+                slots = torch.cat([o[1] for o in outs], dim=1)
+                for g, s in enumerate(shards):
+                    parts[s] = (scores[g], slots[g])
+            rows.append(parts)
+        return [self._gather_merge(d, parts, k, fmt) for d, parts in enumerate(rows)]
 
     def _bm25_step(self, scorer, class_specs, buf, fields_boost, aux, k: int, fmt: str):
         """The BM25 window on every cell: per class ``_query_step`` on the
@@ -964,7 +968,7 @@ class ShardedDeviceIndex:
         boost = np.asarray(fields_boost, dtype=np.float32).view(np.int32)
         if self._class_graphs is not None:
             classes = functools.partial(self._bm25_classes, scorer, class_specs, buf, boost, aux, k)
-            return [self._run_groups(d, functools.partial(classes, d), k, fmt) for d in range(d_ax)]
+            return self._run_groups(classes, k, fmt)
         words, boosts = self._upload([[buf[s, d] for s in range(n)] for d in range(d_ax)], boost)
         rows = []
         for d in range(d_ax):
@@ -1050,7 +1054,7 @@ class ShardedDeviceIndex:
         d_ax, n, C, F = int(self.mesh.shape["data"]), self.n_shards, self.CHUNK, self.num_fields
         if self._class_graphs is not None:
             classes = functools.partial(self._z2o_classes, class_specs, buf, qcat, k, lockstep)
-            return [self._run_groups(d, functools.partial(classes, d), k, fmt) for d in range(d_ax)]
+            return self._run_groups(classes, k, fmt)
         nq = qcat.shape[1]
         cell_words = [
             [np.concatenate([buf[s, d], qcat[d].view(np.int32)]) for s in range(n)]

@@ -5,6 +5,9 @@ so it runs where only torch is installed:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
+The last section's cases need two or four cards (``-k "second_card or
+four_cards"``) and skip, naming the cards visible, on fewer.
+
 Tolerance: lane keys bit-exact; scores ``rtol=2e-5, atol=1e-6``; top-k slots
 equal except that neighbours within that score tolerance may swap (the
 kernel sums a doc's terms sequentially, the plain version by a segmented
@@ -26,8 +29,8 @@ from probly_search_tpu_torch.ops.fused_merge import key_bits_for
 from probly_search_tpu_torch.testing import assert_topk_agree
 
 from .torch_util import (
-    QB, Z2O_EDGES, Z2O_ROW0_EDGES, make_rec, make_tables, make_z2o_tables, merge_edge_rows,
-    merge_rows, to_torch, z2o_edge,
+    QB, Z2O_EDGES, Z2O_ROW0_EDGES, kernel_case, make_rec, make_tables, make_z2o_tables,
+    merge_edge_rows, merge_rows, to_torch, z2o_edge,
 )
 
 
@@ -955,3 +958,358 @@ def test_class_graphs_free_with_their_snapshot_on_cuda(sharded):
         assert torch.cuda.memory_allocated() == base
     finally:
         gc.enable()
+
+
+# --------------------------------------------------------------------- #
+# several cards: each engine and kernel wrapper keeps to its own card     #
+# --------------------------------------------------------------------- #
+
+
+def _cards(n):
+    """Skip unless at least ``n`` CUDA devices are visible."""
+    _cuda()
+    have = torch.cuda.device_count()
+    if have < n:
+        pytest.skip(f"needs {n} CUDA devices, {have} visible")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["K1", "K3", "K4", "K5", "P1"])
+def test_kernel_on_second_card_keeps_current_device_on_cuda(name):
+    """A launch on ``cuda:1`` from a thread whose current device is
+    ``cuda:0`` leaves ``torch.cuda.current_device()`` at 0 (the C entries
+    select their device for the call only), and agrees with the plain
+    version; the same launch inside a capture on a side stream of
+    ``cuda:1`` is recorded in that card's graph: a replay rewrites the
+    outputs (filled with a sentinel after the capture) with the eager
+    launch's values, bit for bit, and the current device is 1 inside the
+    capture and 0 after it."""
+    _cards(2)
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    inputs, kernel, plain, (counter, key) = kernel_case(name, dev)
+    before = counter[key]
+    got = kernel(*inputs)
+    assert torch.cuda.current_device() == 0
+    assert counter[key] == before + 1
+    torch.cuda.synchronize(dev)
+    want = plain(*inputs)
+    if name == "P1":
+        assert torch.equal(got[0], want[0])
+    elif name == "K3":
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=1e-6)
+    else:
+        assert_topk_agree(*(t.cpu().numpy() for t in (*got, *want)))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        g.capture_begin(capture_error_mode="relaxed")
+        try:
+            out = kernel(*inputs)
+            inside = torch.cuda.current_device()
+        finally:
+            g.capture_end()
+    assert inside == 1 and torch.cuda.current_device() == 0
+    for t in out:
+        t.fill_(-7)
+    g.replay()
+    torch.cuda.synchronize(dev)
+    for a, b in zip(out, got):
+        assert torch.equal(a, b)
+    assert torch.cuda.current_device() == 0
+
+
+def _template_corpus():
+    """One field, chunk 128, 20,000 docs, every one holding ``all`` (a
+    class past 16,384 lanes: K3 + K5) and a window of one template (no
+    term-range query): ``tests/test_torch_templates.py``'s corpus."""
+    import random
+
+    from probly_search_tpu_torch import Index, IndexConfig
+
+    rng = random.Random(5)
+    vocab = ["w%03d" % i for i in range(400)]
+    texts = [" ".join(["all"] + [rng.choice(vocab) for _ in range(rng.randint(1, 6))])
+             for _ in range(20000)]
+    window = [" ".join(rng.choice(vocab) for _ in range(rng.randint(1, 3))) for _ in range(60)]
+    window += ["all", "all w001", "all w002 w003", "zzz", ""]
+    ix = Index(1, config=IndexConfig(chunk_size=128, result_format="f32"))
+    ix.add_documents_columnar(list(range(len(texts))), [texts])
+    return ix, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["class_graphs", "template"])
+def test_device_index_on_second_card_matches_first_on_cuda(path, tmp_path):
+    """A ``DeviceIndex`` on ``cuda:1`` serves bit-equal to one on ``cuda:0``
+    (f32 scores and slots), two windows of one composition in turns, and
+    every window launches K1 (a replay counts its graph's launches): on the
+    class graphs (with a zero-to-one window: K4 and both torch programs),
+    and on a template's graph after ``prewarm`` (``cuda:0`` prewarmed
+    first, so torch's shared capture stream, were it used, would live
+    there).  The current device stays 0."""
+    _cards(2)
+    torch.cuda.set_device(0)
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    if path == "template":
+        ix, window = _template_corpus()
+    else:
+        ix, window, vocab = _class_graph_corpus()
+    windows = [window, window[::-1]]
+    devs = ("cuda:0", "cuda:1")
+    dixs = [pdev.DeviceIndex(ix, device=d) for d in devs]
+    if path == "template":
+        src = pdev.DeviceIndex(ix, device="cuda:0")
+        src.query_batch_async(windows[0], bm25.new(), top_k=10).get_arrays()
+        p = str(tmp_path / "t.json")
+        assert src.save_templates(p) == 1
+        for d in dixs:
+            assert d.load_templates(p) == 1 and d.prewarm(bm25.new()) == 1
+            assert torch.cuda.current_device() == 0
+    for turn in range(4):
+        outs = []
+        for d in dixs:
+            replays = metrics.counters.get("template_graph_replays", 0)
+            out, moved = _serve_counted(d, windows[turn % 2], bm25.new(), top_k=10)
+            assert moved[0].get("full"), moved
+            if path == "template":
+                assert metrics.counters.get("template_graph_replays", 0) == replays + 1
+            outs.append((out, moved))
+            assert torch.cuda.current_device() == 0
+        (a, ma), (b, mb) = outs
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert ma[:6] == mb[:6] and _by_card(ma) == {0: _by_card(mb)[1]}, (ma, mb)
+    if path == "class_graphs":
+        z2o = window + [f"{t} {t}" for t in vocab[30:36]]
+        (a, ma), (b, mb) = (_serve_counted(d, z2o, zero_to_one.new(), top_k=10) for d in dixs)
+        assert mb[4].get("fused_z2o") and mb[5].get("z2o_lockstep") and ma[:6] == mb[:6], mb
+        assert _by_card(ma) == {0: _by_card(mb)[1]}, (ma, mb)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        assert all(len(d._class_graphs) for d in dixs)
+    cpu = pdev.DeviceIndex(ix, device="cpu")
+    c = cpu.query_batch_async(windows[1], bm25.new(), top_k=10).get_arrays()
+    got = dixs[1].query_batch_async(windows[1], bm25.new(), top_k=10).get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
+
+
+def _four_cards():
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _by_card(moved):
+    """The per-card launch counts of ``moved`` (``_serve_counted``,
+    ``_sharded_served``) as {card index: {kernel: n}}."""
+    out = {}
+    for counts in moved[6:]:
+        for key, n in counts.items():
+            name, card = key.split("@cuda:")
+            out.setdefault(int(card), {})[name] = n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bm25", "tfboost", "z2o"])
+@pytest.mark.parametrize("data,docs", [(1, 4), (2, 2)])
+def test_sharded_windows_over_four_cards_match_one_card_on_cuda(data, docs, kind):
+    """The sharded engine on a mesh over four distinct cards against the
+    same mesh on ``cuda:0`` x 4: packed rows bit-equal and every launch
+    counter moved alike, on the capturing window and a replayed one (BM25
+    with K1, K3 + K5 and range classes; TfBoost; zero-to-one with K4,
+    staged and lockstep classes).  Each card keeps its own class graphs:
+    one group a card (one shard), its keys naming that shard, the second
+    window capturing nothing; the current device stays 0."""
+    _cards(4)
+    torch.cuda.set_device(0)
+    import dataclasses
+
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    from .torch_util import TfBoost
+
+    ix, window = _sharded_corpus()
+    ix.config = dataclasses.replace(ix.config, result_format="f32")
+    scorer = {"bm25": bm25.new(), "tfboost": TfBoost(), "z2o": None}[kind]
+    if kind == "z2o":
+        window = window[:100] + ["p", "a a", "ab a b"]
+    one = ShardedDeviceIndex(ix, make_mesh(data, docs, devices=["cuda:0"] * 4))
+    four = ShardedDeviceIndex(ix, make_mesh(data, docs))
+    assert list(four._class_graphs) == _four_cards()
+    assert all(len(groups) == docs for groups in four._groups)
+    want_h, want, want_moved = _sharded_served(one, window, scorer)
+    metrics.reset()
+    for turn in range(2):
+        got_h, got, moved = _sharded_served(four, window, scorer)
+        assert torch.cuda.current_device() == 0
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        for rows_g, rows_w in zip(got_h._packed, want_h._packed):
+            for d, (a, b) in enumerate(zip(rows_g, rows_w)):
+                assert a.device == four.mesh.devices[d, 0]
+                assert torch.equal(a.cpu(), b.cpu()), turn
+        assert moved[:6] == want_moved[:6], (turn, moved, want_moved)
+        # Each card launches what the one-card engine launches a shard.
+        (per_cell,) = ({key: n // 4 for key, n in c.items()} for c in _by_card(want_moved).values())
+        assert _by_card(moved) == dict.fromkeys(range(4), per_cell), (moved, want_moved)
+        caches = four._class_graphs
+        assert metrics.counters["class_graph_captures"] == sum(len(c) for c in caches.values())
+    (cache_one,) = one._class_graphs.values()
+    for d in range(data):
+        for s in range(docs):
+            cache = caches[four.mesh.devices[d, s]]
+            assert len(cache) and all(key.shards == (s,) for key in cache.keys())
+    # One card's keys for all its shards against one key a shard a card.
+    assert sum(len(c) for c in caches.values()) == data * docs * len(cache_one)
+    if kind == "bm25":
+        assert any(key.use_ranges for c in caches.values() for key in c.keys())
+        assert want_moved[0].get("full") and want_moved[0].get("lanes")
+        assert want_moved[2].get("merge_topk")
+    elif kind == "tfboost":
+        assert not want_moved[0] and want_moved[2].get("merge_topk")
+    else:
+        assert want_moved[4].get("fused_z2o") and want_moved[5].get("z2o_staged") \
+            and want_moved[5].get("z2o_lockstep"), want_moved
+
+
+@pytest.mark.cuda
+def test_sharded_four_cards_capture_only_new_keys_on_cuda():
+    """Mesh (2, 2) over four cards: a second window of another composition
+    captures on each card only the keys that card had not seen."""
+    _cards(4)
+    torch.cuda.set_device(0)
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix, window = _sharded_corpus()
+    sdix = ShardedDeviceIndex(ix, make_mesh(2, 2))
+    sdix.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    first = {dev: set(c.keys()) for dev, c in sdix._class_graphs.items()}
+    assert all(first.values())
+    second = window[::2] + ["p"]
+    metrics.reset()
+    got = sdix.query_batch_async(second, bm25.new(), top_k=10).get_arrays()
+    new = {dev: set(c.keys()) - first[dev] for dev, c in sdix._class_graphs.items()}
+    assert all(new.values())
+    assert metrics.counters["class_graph_captures"] == sum(map(len, new.values()))
+    want = pdev.DeviceIndex(ix, device="cuda:0").query_batch_async(second, bm25.new(), top_k=10)
+    c = want.get_arrays()
+    assert_topk_agree(got[0], got[1], c[0], c[1])
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_sharded_snapshot_over_four_cards_frees_every_card_on_cuda():
+    """With the collector off, dropping a ShardedDeviceIndex over four
+    cards whose windows captured graphs on every card (range classes among
+    them) returns each card's allocated memory to what it was before."""
+    _cards(4)
+    torch.cuda.set_device(0)
+    import gc
+    import weakref
+
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+
+    ix, window = _sharded_corpus()
+    cards = _four_cards()
+
+    def served():
+        d = ShardedDeviceIndex(ix, make_mesh(1, 4))
+        d.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+        return d
+
+    served()  # a first round warms the kernels' build and the allocator
+    gc.collect()
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+    base = [torch.cuda.memory_allocated(dev) for dev in cards]
+    gc.disable()
+    try:
+        d = served()
+        assert all(len(c) for c in d._class_graphs.values())
+        assert any(key.use_ranges for c in d._class_graphs.values() for key in c.keys())
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+        assert all(torch.cuda.memory_allocated(dev) > b for dev, b in zip(cards, base))
+        ref = weakref.ref(d)
+        del d
+        assert ref() is None
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+        assert [torch.cuda.memory_allocated(dev) for dev in cards] == base
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_index_serves_on_four_cards_through_mutation_on_cuda():
+    """``Index`` routing over four cards: ``attach_mesh(make_mesh(2, 2))``
+    and ``sharded_index()`` with no mesh (every visible card), BM25 and
+    zero-to-one through ``query_batch`` / ``query_batch_async`` against the
+    single-device engine on ``cuda:0``; then documents added and removed, a
+    new snapshot, the same queries again against the single-device engine
+    and the f64 oracle, and the old snapshot freed on every card."""
+    _cards(4)
+    torch.cuda.set_device(0)
+    import gc
+    import weakref
+
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.ops import z2o_device as pz
+
+    ix, window = _sharded_corpus()
+    window = window[:-1]  # no host-fallback query
+    tok = pdev.whitespace_tokenizer
+
+    def single(queries):
+        dix = pdev.DeviceIndex(ix, device="cuda:0")
+        return (dix.query_batch_async(queries, bm25.new(), top_k=10).get_arrays(),
+                pz.z2o_query_batch_async(dix, queries, tok, 10, fmt="f32").get_arrays())
+
+    def check(queries):
+        for (scorer, want), blocking in zip(zip((bm25.new(), zero_to_one.new()), single(queries)),
+                                            (False, True)):
+            got = ix.query_batch_async(queries, scorer, top_k=10).get_arrays()
+            assert_topk_agree(got[0], got[1], want[0], want[1])
+            if blocking:
+                rows = ix.query_batch(queries, scorer, top_k=10)
+                assert [[r.key for r in row] for row in rows] == [
+                    [key for key, slot in zip(keys, slots) if slot >= 0]
+                    for keys, slots in zip(got[2].tolist(), got[1])]
+        assert torch.cuda.current_device() == 0
+
+    ix.attach_mesh(make_mesh(2, 2))
+    check(window)
+    assert [str(d) for d in ix.sharded_index().mesh.devices.reshape(-1)] == [
+        f"cuda:{i}" for i in range(4)]
+    ix.attach_mesh(None)
+    sdix = ix.sharded_index()
+    assert sdix.mesh.shape == {"data": 1, "docs": 4}
+    assert list(sdix._class_graphs) == _four_cards()
+    check(window)
+    n = ix._next_slot
+    ix.add_documents_columnar(
+        list(range(n, n + 300)), [[f"p001 q0007 new{i % 7}" for i in range(300)]])
+    for key in range(5, n, 97):
+        ix.remove_document(key)
+    ref = weakref.ref(sdix)
+    del sdix
+    gc.disable()
+    try:
+        fresh = ix.sharded_index()
+        assert ref() is None and fresh.version == ix.version
+    finally:
+        gc.enable()
+    queries = window[:50] + ["p001", "q0007 new3", "new1", "p001 new2"]
+    check(queries)
+    s, sl, _keys = ix.query_batch_async(queries, bm25.new(), top_k=10).get_arrays()
+    for qi, q in enumerate(queries):
+        want = ix.query(q, bm25.new(), tok, [1.0], top_k=10)
+        np.testing.assert_allclose(
+            s[qi][: len(want)], [r.score for r in want], rtol=2e-5, atol=1e-6)
+        assert (sl[qi][len(want):] == -1).all()

@@ -270,3 +270,39 @@ def z2o_edge(kind, seed=0):
         qlen[:] = 1.0
     tables = [c_start, c_skip, c_len, c_qterm, c_score, score_ranks(c_score), qlen]
     return rec, tables, C, F, k, num_slots
+
+
+def kernel_case(name, dev):
+    """Seeded inputs on ``dev`` for one kernel wrapper (K1 phase full, K3
+    phase lanes, K4, K5 or P1): (inputs, kernel(*inputs), plain(*inputs),
+    (its launch counter, key)).  Shared by the card tests and
+    ``tools/torch_card_probe.py``."""
+    from probly_search_tpu_torch import bm25
+    from probly_search_tpu_torch.ops import fused_merge as fm
+    from probly_search_tpu_torch.ops import fused_query as fq
+    from probly_search_tpu_torch.ops import fused_z2o as fz
+    from probly_search_tpu_torch.ops import launch_probe as lp
+
+    rng = np.random.default_rng(11)
+    if name == "P1":
+        x = torch.from_numpy(rng.standard_normal(lp.SHAPE).astype(np.float32)).to(dev)
+        return [x], lambda x: (lp.probe_add(x),), lambda x: (lp.probe_add_reference(x),), (
+            lp.launches, "probe_add")
+    if name == "K5":
+        key, val = merge_rows(rng, 4, 32, 1024, False, presorted=True, n_docs=4096)
+        kw = dict(k=10, qterm_bits=QB, run=1024, max_seg=32)
+        return to_torch([key, val], dev), lambda *a: fm.merge_scores_topk_fused(*a, **kw), \
+            lambda *a: fm.merge_scores_topk_fused_reference(*a, **kw), (fm.launches, "merge_topk")
+    rec, starts, lens = make_rec(rng, n_docs=3000, n_terms=400, C=1024)
+    rec_t = fq.padded_rows(rec, dev)
+    if name == "K4":
+        tables = to_torch(make_z2o_tables(rng, starts, lens, 16, 4, C=1024), dev)
+        kw = dict(chunk=1024, k=10, num_fields=1)
+        return [rec_t, *tables], lambda *a: fz.fused_z2o_topk(*a, **kw), \
+            lambda *a: fz.fused_z2o_topk_reference(*a, **kw), (fz.launches, "fused_z2o")
+    phase, NC = ("full", 8) if name == "K1" else ("lanes", 24)
+    tables = to_torch(make_tables(rng, starts, lens, 16, NC, C=1024), dev)
+    scalars = torch.tensor([6.5, 1.5], dtype=torch.float32, device=dev)
+    kw = dict(chunk=1024, k=10, qterm_bits=QB, num_fields=1, phase=phase)
+    return [rec_t, *tables, scalars], lambda *a: fq.fused_query_topk(bm25.new(), *a, **kw), \
+        lambda *a: fq.fused_query_topk_reference(bm25.new(), *a, **kw), (fq.launches, phase)
