@@ -122,6 +122,27 @@ Phases (any failure raises, so the exit code is not 0):
      bit-equal to 3g's on cuda:0; then a mutation (1,000 documents added,
      100 removed), the old snapshot freed on every card with the collector
      off, and the new one's rows against the f64 oracle;
+  3t. (after 3m) phase 3's index served from several threads at once, each
+     thread submitting and draining its own windows (phase 3's two windows
+     and the two reversed): (a) a fresh DeviceIndex (composed windows), 4
+     threads x 2 windows, the first sights capturing class graphs; (b) 3g's
+     template graph, 4 threads x 2 windows on the shared stream, then on a
+     CUDA stream a thread; (c) a fresh DeviceIndex of a loaded template,
+     prewarm on a thread while 2 threads serve (windows before the graph on
+     class graphs, after it on the graph); QPS with 1, 2 and 4 submitting
+     threads on 3g's graph, query/plan and query/pack host ms, device busy
+     and idle share (torch.profiler), for information; (f) 3s's sharded
+     engine and (g) 3m's over the cards (with one card: "not run"), 2
+     threads x 2 windows, shared stream and a stream a thread; (d) a writer
+     (3 rounds of 300 adds and 30 removes, each followed by
+     ix.device_index()) while 2 readers serve each window on the newest
+     snapshot, then the replaced snapshots freed with the collector off and
+     the last one's rows against the f64 oracle; (e) Index.query_batch at
+     IndexConfig.low_latency() (2,048-query windows, depth 4) from 2
+     threads against one 16,384-query window.  Every window's packed rows
+     byte-equal to the same window served alone (serially, on the same
+     engine); in every turn the launches counted across the threads equal
+     to the serial windows' sum, per kernel and per card;
   3z. one 16,384-query zero-to-one window over that 1M-doc corpus: each
      class's route; served cold, warm, eagerly and warm again (ms,
      z2o/dispatch, captures, keys, pool bytes, the warm window bit-equal to
@@ -183,7 +204,13 @@ Phases (any failure raises, so the exit code is not 0):
      turns, launches per card, the gather, both windows and 256 queries in
      f32 bit-equal (arrays and packed rows), tie-aware recall@10, busy per
      card, and K4 held against plain on each card (the widest K4 class of
-     each cell).
+     each cell);
+  4t. z2o 50k from 4 threads x 2 windows ("slots"; K4 and lockstep
+     classes) on a fresh DeviceIndex (first sights capturing), then on the
+     shared stream and on a stream a thread: slots and packed rows equal to
+     phase 4's serial windows, launches equal to their sum; then
+     z2o_query_batch at the low_latency() windows (2,048 at depth 4, f32)
+     from 2 threads against one 16,384-query window.
 Every window without a frozen template's CUDA graph replays cached class
 graphs (index/device.py ClassGraphs; the sharded engine's, one cache a
 device, parallel/dist_query.py); "eager" turns swap in
@@ -205,6 +232,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -2779,11 +2807,12 @@ def busy_per_card(label, submits):
 def phase_cards(ix, gix, one, windows, zipf, scorer, card, errs):
     """Phase 3m: phase 3's index over distinct cards (see the module
     docstring).  Mutates ``ix`` at its end: run it after every phase that
-    reads phase 3's index."""
+    reads phase 3's index.  Returns the engine over the cards after the
+    mutation (None with one card)."""
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         log(f"3m phase 3's index over distinct cards: not run ({n_cards} card visible)")
-        return
+        return None
     n = min(n_cards, 4)
     k = 10
     cards, desc = cards_in_use(n)
@@ -2903,7 +2932,7 @@ def phase_cards(ix, gix, one, windows, zipf, scorer, card, errs):
         f"{int(np.isin(valid, removed).sum())} removed ones")
     assert recall >= 0.999 and (valid >= N_DOCS).any() and not np.isin(valid, removed).any()
     ix.attach_mesh(None)
-    del fresh
+    return fresh
 
 
 def phase_cards_z2o(ix, windows, one, card):
@@ -2970,6 +2999,414 @@ def phase_cards_z2o(ix, windows, one, card):
     return err_max
 
 
+# --------------------------------------------------------------------- #
+# phases 3t, 4t: several threads serving one engine                      #
+# --------------------------------------------------------------------- #
+
+
+def launch_counts():
+    return [dict(c) for c in pdev._launch_counters()]
+
+
+def moved_since(before):
+    """The launch counts moved since ``before`` (``launch_counts``), per
+    counter: K1 / K3 by phase and chunk, K5 and its paths, K4, the z2o
+    programs, then K1 / K3, K5 and K4 per card."""
+    return [{key: n - was.get(key, 0) for key, n in c.items() if n != was.get(key, 0)}
+            for c, was in zip(pdev._launch_counters(), before)]
+
+
+def summed(moves):
+    """Per counter, the sum of several runs' moved counts."""
+    total = [{} for _ in pdev._launch_counters()]
+    for moved in moves:
+        for t, m in zip(total, moved):
+            for key, n in m.items():
+                t[key] = t.get(key, 0) + n
+    return total
+
+
+def brief(moved):
+    """The kernels' counts of ``moved``, one dict."""
+    return {key: n for m in moved for key, n in m.items()}
+
+
+def rows_equal(a, b, label):
+    """Two runs' rows (arrays, packed bytes, lists and tuples of them, or
+    QueryResult lists) equal, bit for bit."""
+    if isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), label
+        for x, y in zip(a, b):
+            rows_equal(x, y, label)
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, label
+        np.testing.assert_array_equal(a, b, err_msg=label)
+    else:
+        assert a == b, label
+
+
+def threaded(per_thread, serve, own_streams=False):
+    """Thread t runs ``serve(job)`` for each job of ``per_thread[t]`` in
+    turn (each ``serve`` submits and drains its own window), every thread at
+    once, each under a CUDA stream of its own with ``own_streams``.
+    Returns ([the results of each thread], the launches moved in all,
+    seconds)."""
+    streams = [torch.cuda.Stream() if own_streams else None for _ in per_thread]
+
+    def worker(t):
+        with torch.cuda.stream(streams[t]) if own_streams else contextlib.nullcontext():
+            return [serve(job) for job in per_thread[t]]
+
+    sync_cards()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(per_thread)) as pool:
+        futs = [pool.submit(worker, t) for t in range(len(per_thread))]
+        results = [f.result() for f in futs]
+    sync_cards()
+    return results, moved_since(before), time.perf_counter() - t0
+
+
+def serial_runs(jobs, serve):
+    """Each distinct job of ``jobs`` served alone, one after another:
+    {job: (its rows, the launches it moved)}."""
+    out = {}
+    for job in dict.fromkeys(jobs):
+        sync_cards()
+        before = launch_counts()
+        rows = serve(job)
+        sync_cards()
+        out[job] = (rows, moved_since(before))
+    return out
+
+
+def check_threads(label, per_thread, results, moved, serial, extra=()):
+    """Every thread's rows equal to the serial rows of the same job, and
+    the launches counted across the threads equal to the sum of the serial
+    jobs' (plus ``extra`` runs' moved counts), per kernel and per card."""
+    for t, (jobs, rows_t) in enumerate(zip(per_thread, results)):
+        for job, rows in zip(jobs, rows_t):
+            rows_equal(rows, serial[job][0], f"{label}: thread {t}, job {job}")
+    want = summed([serial[job][1] for jobs in per_thread for job in jobs] + list(extra))
+    assert moved == want, (label, moved, want)
+
+
+def packed_rows(h):
+    """A drained BM25 or z2o window's slots and packed rows on the host."""
+    arrays = h.get_arrays()
+    return arrays[1], h._packed.cpu().numpy()
+
+
+def qps_by_threads(label, submit, card, n=16):
+    """``n`` windows (``submit(i)``) served by 1, 2 and 4 threads, each
+    submitting and draining its share one window at a time: QPS, the mean
+    query/plan and query/pack host ms, and, from a second run under
+    torch.profiler, the device's busy and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = []
+    for n_threads in (1, 2, 4):
+        per_thread = [list(range(t, n, n_threads)) for t in range(n_threads)]
+        pdev.metrics.reset()
+        _r, _m, dt = threaded(per_thread, lambda i: submit(i).get_arrays())
+        hist = pdev.metrics.snapshot()["histograms"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _r, _m, dt_p = threaded(per_thread, lambda i: submit(i).get_arrays())
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        share = f"device busy {busy / n:.3f} ms a window, idle {100 * (1 - busy / (1e3 * dt_p)):.1f}%" \
+            if busy else "device time not measured (no device events)"
+        parts.append(f"{n_threads} thread(s) {n * WINDOW / dt:.1f} QPS ({1e3 * dt / n:.3f} ms/window), "
+                     f"plan {hist['query/plan']['mean_us'] / 1e3:.3f} pack "
+                     f"{hist['query/pack']['mean_us'] / 1e3:.3f} ms a window, {share}")
+    log(f"{label} on {card}, {n} windows of {WINDOW} queries, each thread submitting and draining "
+        "one window at a time (for information only): " + "; ".join(parts))
+
+
+def phase_threads(ix, gix, one, cards_engine, windows, zipf, scorer, card):
+    """Phase 3t: phase 3's index served from several threads at once (see
+    the module docstring).  Mutates ``ix`` and restores its config.
+    Returns the launches of the threaded turns (the serial reference runs
+    left out)."""
+    t_phase = time.perf_counter()
+    k = 10
+    variants = [windows[0], windows[1], windows[0][::-1], windows[1][::-1]]
+    pairs = [[t, (t + 1) % 4] for t in range(4)]
+    base = ix.config
+    served = []
+
+    def on(d):
+        return lambda j: packed_rows(d.query_batch_async(variants[j], scorer, top_k=k))
+
+    # (a) A fresh DeviceIndex (composed windows: a window's packed layout
+    # depends on its queries alone): first sights capture on four threads.
+    fresh = DeviceIndex(ix, device="cuda")
+    fresh.config = dataclasses.replace(base, template_compositions=False, result_format="slots20")
+    pdev.metrics.reset()
+    results, moved, dt = threaded(pairs, on(fresh))
+    ctr = pdev.metrics.snapshot()["counters"]
+    serial = serial_runs(range(4), on(fresh))
+    check_threads("3t (a)", pairs, results, moved, serial)
+    served.append(moved)
+    assert ctr.get("class_graph_captures", 0) == len(fresh._class_graphs) > 0, ctr
+    log(f"3t (a) a fresh DeviceIndex, 4 threads x 2 windows (composed): {dt:.3f} s, "
+        f"{int(ctr['class_graph_captures'])} class graphs captured on first sight across the "
+        f"threads; each window's packed rows byte-equal to the serial window's; launches across the "
+        f"threads equal to the serial windows' sum {brief(moved)}")
+
+    # (b) gix's template graph: the shared stream, then a stream a thread.
+    serial = serial_runs(range(4), on(gix))
+    for own in (False, True):
+        pdev.metrics.reset()
+        results, moved, dt = threaded(pairs, on(gix), own_streams=own)
+        ctr = pdev.metrics.snapshot()["counters"]
+        check_threads("3t (b)", pairs, results, moved, serial)
+        assert ctr.get("template_graph_replays") == 8 and not ctr.get("template_refreezes"), ctr
+        served.append(moved)
+        log(f"3t (b) 3g's template graph, 4 threads x 2 windows on "
+            f"{'a stream of its own each' if own else 'the shared stream'}: {dt:.3f} s, 8 replays; "
+            f"packed rows byte-equal to the serial windows'; launches equal {brief(moved)}")
+
+    # (c) prewarm on a thread while two threads serve a fresh DeviceIndex
+    # of the same template (frozen on (a)'s snapshot, so nothing refreezes).
+    fresh.config = dataclasses.replace(fresh.config, template_compositions=True)
+    for j in range(4):
+        on(fresh)(j)
+    os.makedirs(os.path.join(ROOT, "build", "templates"), exist_ok=True)
+    manifest = os.path.join(ROOT, "build", "templates", "3t.json")
+    assert fresh.save_templates(manifest) == 1
+    del fresh
+    pix = DeviceIndex(ix, device="cuda")
+    pix.config = dataclasses.replace(base, result_format="slots20")
+    assert pix.load_templates(manifest) == 1
+    started, warmed = threading.Barrier(3), threading.Event()
+
+    def server(t):
+        rows, after = [], 0
+        for r in range(100):
+            rows.append(on(pix)((t + r) % 2))
+            if r == 0:
+                started.wait(120)
+            after += warmed.is_set()
+            if after == 2:
+                break
+        return rows
+
+    def warmer():
+        started.wait(120)
+        t = time.perf_counter()
+        n = pix.prewarm(scorer)
+        warmed.set()
+        return n, time.perf_counter() - t
+
+    pdev.metrics.reset()
+    before = launch_counts()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futs = [pool.submit(server, 0), pool.submit(server, 1), pool.submit(warmer)]
+        got0, got1, (n_warm, t_pw) = (f.result() for f in futs)
+    sync_cards()
+    moved = moved_since(before)
+    ctr = pdev.metrics.snapshot()["counters"]
+    per_thread = [[(0 + r) % 2 for r in range(len(got0))], [(1 + r) % 2 for r in range(len(got1))]]
+    serial = serial_runs(range(2), on(pix))
+    # prewarm runs its template's step once eagerly: one window's launches.
+    check_threads("3t (c)", per_thread, [got0, got1], moved, serial, extra=[serial[0][1]])
+    n_graph = int(ctr.get("template_graph_replays", 0))
+    assert n_warm == 1 and n_graph >= 2 and ctr.get("class_graph_replays", 0) > 0, ctr
+    assert not ctr.get("template_refreezes"), ctr
+    served.append(moved)
+    log(f"3t (c) prewarm on a thread ({t_pw:.3f} s) while 2 threads serve a fresh DeviceIndex: "
+        f"{len(got0) + len(got1)} windows, {n_graph} on the template graph, the rest on class graphs "
+        f"({int(ctr.get('class_graph_captures', 0))} captured); packed rows byte-equal to the serial "
+        f"windows'; launches equal to theirs plus prewarm's eager run {brief(moved)}")
+
+    qps_by_threads("3t QPS by submitting threads, 3g's template graph",
+                   lambda i: gix.query_batch_async(variants[i % 4], scorer, top_k=k), card)
+    del pix
+
+    # (f) 3s's sharded engine (4 shards on cuda:0), (g) 3m's over the cards.
+    def on_sharded(d):
+        def serve(j):
+            h = d.query_batch_async(variants[j], scorer, top_k=k)
+            arrays = h.get_arrays()
+            return arrays[1], [p.cpu().numpy() for p in h._packed[0]]
+        return serve
+
+    engines = [("(f) 3s's engine", one)]
+    if cards_engine is not None:
+        engines.append((f"(g) 3m's engine over {cards_engine.n_shards} cards", cards_engine))
+    else:
+        log(f"3t (g) 3m's engine over several cards: not run ({torch.cuda.device_count()} card visible)")
+    for label, d in engines:
+        with_format(d, "slots20")
+        serial = serial_runs(range(3), on_sharded(d))
+        for own in (False, True):
+            results, moved, dt = threaded(pairs[:2], on_sharded(d), own_streams=own)
+            check_threads(f"3t {label}", pairs[:2], results, moved, serial)
+            served.append(moved)
+            log(f"3t {label} on {d.mesh}, 2 threads x 2 windows on "
+                f"{'a stream of its own each' if own else 'the shared stream'}: {dt:.3f} s; packed "
+                f"rows byte-equal to the serial windows'; launches equal, per card {brief(moved[6:])}")
+
+    # (d) A writer mutates ix and takes snapshots while two readers serve
+    # the newest snapshot each window (composed windows).
+    ix.config = dataclasses.replace(base, template_compositions=False, result_format="slots20")
+    vocab, _cdf = zipf
+    rng = np.random.default_rng(SEED + 9)
+    snaps, stop = [ix.device_index()], threading.Event()
+    next_key = max(ix._key_to_slot) + 1
+
+    def writer():
+        times = []
+        try:
+            for r in range(3):
+                t = time.perf_counter()
+                keys = list(range(next_key + 300 * r, next_key + 300 * (r + 1)))
+                ix.add_documents_columnar(keys, [[" ".join(vocab[j] for j in rng.integers(100, 2000, 8))
+                                                  for _ in keys]])
+                for key in range(11 + r, N_DOCS, 33331)[:30]:
+                    ix.remove_document(key)
+                snaps.append(ix.device_index())
+                times.append(time.perf_counter() - t)
+        finally:
+            stop.set()
+        return times
+
+    def reader(t):
+        out, r = [], 0
+        while not stop.is_set() or r < 2:
+            si = len(snaps) - 1
+            out.append((si, (t + r) % 2, on(snaps[si])((t + r) % 2)))
+            r += 1
+        return out
+
+    before = launch_counts()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futs = [pool.submit(writer), pool.submit(reader, 0), pool.submit(reader, 1)]
+        w_times, reads0, reads1 = (f.result() for f in futs)
+    sync_cards()
+    moved = moved_since(before)
+    reads = reads0 + reads1
+    serial = {}
+    for si, j, _rows in reads:
+        if (si, j) not in serial:
+            serial[(si, j)] = serial_runs([j], on(snaps[si]))[j]
+    check_threads("3t (d)", [[(si, j) for si, j, _r in reads]], [[rows for _s, _j, rows in reads]],
+                  moved, serial)
+    served.append(moved)
+    used = sorted({si for si, _j, _r in reads})
+    log(f"3t (d) a writer: 3 rounds of 300 adds and 30 removes, each followed by ix.device_index() "
+        f"({', '.join(f'{v:.3f}' for v in w_times)} s), while 2 readers served {len(reads)} windows on "
+        f"snapshots {used} of {len(snaps)}; each window's packed rows byte-equal to its snapshot's "
+        f"serial rows; launches equal {brief(moved)}")
+    # The replaced snapshots, freed with the collector off.
+    keep = ix.device_index()
+    assert keep is snaps[-1]
+    refs = [weakref.ref(x) for x in snaps[:-1]]
+    del reads, reads0, reads1, serial, futs
+    sync_cards()
+    mem0 = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        del snaps[:-1]
+        alive = sum(r() is not None for r in refs)
+        sync_cards()
+        freed = mem0 - torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    log(f"3t (d) the {len(refs)} replaced snapshots dropped with the collector off: {alive} still "
+        f"referenced, {freed} B freed on the card")
+    assert alive == 0 and freed > 0, (alive, freed)
+    _ORACLE.clear()  # the index changed
+    _s, slots, keys = keep.query_batch_async(windows[0][:256], scorer, top_k=k).get_arrays()
+    recall = bm25_recall(ix, windows[0][:256], slots, keys, k)
+    log(f"3t (d) the last snapshot: recall@{k} against the f64 oracle on 256 queries {recall!r}")
+    assert recall >= 0.999, recall
+
+    # (e) Index.query_batch at IndexConfig.low_latency() from two threads.
+    # Composed windows, so that a window's classes (and launches) do not
+    # depend on which thread froze a template first.
+    preset = IndexConfig.low_latency()
+    ix.config = keep.config = dataclasses.replace(
+        base, serving_window=preset.serving_window, serving_depth=preset.serving_depth,
+        result_format="f32", template_compositions=False)
+
+    def blocking(j):
+        return [[(r.key, r.score) for r in row]
+                for row in ix.query_batch(variants[j], scorer, top_k=k)]
+
+    results, moved, dt = threaded([[0], [1]], blocking)
+    serial = serial_runs(range(2), blocking)
+    check_threads("3t (e)", [[0], [1]], results, moved, serial)
+    served.append(moved)
+    for j in range(2):
+        one_window = [[(r.key, r.score) for r in row]
+                      for row in keep.query_batch_async(variants[j], scorer, top_k=k).get()]
+        rows_equal(results[j][0], one_window, f"3t (e) window {j} against one window")
+    log(f"3t (e) Index.query_batch at IndexConfig.low_latency() (windows of "
+        f"{ix.config.serving_window} at depth {ix.config.serving_depth}) from 2 threads, "
+        f"{WINDOW} queries each: {dt:.3f} s; rows equal to one {WINDOW}-query window's and to the "
+        f"serial calls'; launches equal {brief(moved)}")
+    ix.config = keep.config = base
+    with_format(one, "slots20")
+
+    total = brief(summed(served))
+    assert all(total.get(key) for key in ("full", "lanes", "merge_topk")), total
+    log(f"3t: {time.perf_counter() - t_phase:.1f} s in all")
+    return total
+
+
+def phase_threads_z2o(ix, dix, windows, card):
+    """Phase 4t: zero-to-one 50k from several threads (see the module
+    docstring).  Returns K4's launches in the threaded turns."""
+    t_phase = time.perf_counter()
+    k = 10
+    variants = [windows[0], windows[1], windows[0][::-1], windows[1][::-1]]
+    pairs = [[t, (t + 1) % 4] for t in range(4)]
+
+    def on(d):
+        return lambda j: packed_rows(pz.z2o_query_batch_async(d, variants[j], TOK, k, fmt="slots"))
+
+    serial = serial_runs(range(4), on(dix))
+    fresh = DeviceIndex(ix, device="cuda")
+    pdev.metrics.reset()
+    results, moved, dt = threaded(pairs, on(fresh))
+    ctr = pdev.metrics.snapshot()["counters"]
+    check_threads("4t fresh", pairs, results, moved, serial)
+    assert moved[4].get("fused_z2o") and moved[5].get("z2o_lockstep"), moved
+    log(f"4t a fresh DeviceIndex of z2o 50k, 4 threads x 2 windows: {dt:.3f} s, "
+        f"{int(ctr.get('class_graph_captures', 0))} class graphs captured on first sight; slots and "
+        f"packed rows equal to phase 4's serial windows; launches equal {brief(moved)}")
+    served = [moved]
+    for own in (False, True):
+        results, moved, dt = threaded(pairs, on(fresh), own_streams=own)
+        check_threads("4t", pairs, results, moved, serial)
+        served.append(moved)
+        log(f"4t 4 threads x 2 windows on {'a stream of its own each' if own else 'the shared stream'}: "
+            f"{dt:.3f} s; slots and packed rows equal to the serial windows'; launches equal "
+            f"{brief(moved)}")
+    del fresh
+    base = dix.config
+    dix.config = dataclasses.replace(base, serving_window=2048, serving_depth=4, result_format="f32")
+
+    def blocking(j):
+        return [[(r.key, r.score) for r in row] for row in pz.z2o_query_batch(dix, variants[j], TOK, k)]
+
+    results, moved, dt = threaded([[0], [1]], blocking)
+    serial = serial_runs(range(2), blocking)
+    check_threads("4t low_latency", [[0], [1]], results, moved, serial)
+    served.append(moved)
+    for j in range(2):
+        one_window = [[(r.key, r.score) for r in row]
+                      for row in pz.z2o_query_batch_async(dix, variants[j], TOK, k, fmt="f32").get()]
+        rows_equal(results[j][0], one_window, f"4t low_latency window {j} against one window")
+    dix.config = base
+    log(f"4t z2o_query_batch at the low_latency() windows (2048 at depth 4) from 2 threads: {dt:.3f} s; "
+        f"rows equal to one {WINDOW}-query window's and to the serial calls'; launches equal {brief(moved)}")
+    log(f"4t: {time.perf_counter() - t_phase:.1f} s in all")
+    return brief(summed(served))["fused_z2o"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -3006,13 +3443,17 @@ def main():
     for key in ("full", "lanes", "merge_topk"):
         launches[key] += prune_launches[key]
     light_launches, light = phase_light(ix, dix, gix, windows, scorer, card)
-    phase_cards(ix, gix, one_card, windows, zipf, scorer, card, errs)
-    del dix, gix, ix, one_card
+    cards_engine = phase_cards(ix, gix, one_card, windows, zipf, scorer, card, errs)
+    thread_launches = phase_threads(ix, gix, one_card, cards_engine, windows, zipf, scorer, card)
+    for key in ("full", "lanes", "merge_topk"):
+        launches[key] += thread_launches[key]
+    del dix, gix, ix, one_card, cards_engine
     z2o_counts_, z2o_err, z2o_times, z2o_run = phase_z2o_main(card)
     sz_launches, sz_err, sz = phase_sharded_z2o(*z2o_run, card)
     cards_z2o_err = phase_cards_z2o(z2o_run[0], z2o_run[2], sz, card)
     del sz
-    launches["fused_z2o"] = z2o_counts_["fused_z2o"] + sz_launches
+    z2o_thread_launches = phase_threads_z2o(*z2o_run, card)
+    launches["fused_z2o"] = z2o_counts_["fused_z2o"] + sz_launches + z2o_thread_launches
     win_errs["fused_z2o"] = max(z2o_err, sz_err, cards_z2o_err)
     times["fused_z2o"] = z2o_times
     launches["probe_add"] = probe_launches

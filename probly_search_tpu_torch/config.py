@@ -209,8 +209,9 @@ class IndexConfig:
         """Preset for latency-sensitive serving: 2,048-query windows at
         pipeline depth 4 (the JAX engine's preset), trading throughput for
         a shorter wait per window.  Deeper pipelines raise throughput and
-        latency; depth 1 is the fully synchronous floor.  Not measured on a
-        CUDA card yet.
+        latency; depth 1 is the fully synchronous floor.  Its windows from
+        several threads on an H100 are measured in ``chip_smoke.py`` phase
+        3t (``PERF.md``).
         """
         kw.setdefault("serving_window", 2048)
         kw.setdefault("serving_depth", 4)

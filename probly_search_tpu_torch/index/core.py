@@ -164,8 +164,16 @@ class Index:
         # entry point.  The reference is single-threaded and only proves
         # Send-ness via an external Mutex (integrations_tests.rs:151-168);
         # here interleaved add/remove/query from multiple threads is safe
-        # by construction (SURVEY §5 race-detection plan).  SPMD device
-        # execution is data-race-free by construction.
+        # by construction (SURVEY §5 race-detection plan).  On the card,
+        # threads that serve one snapshot at once (DeviceIndex,
+        # ShardedDeviceIndex, on any streams) are kept apart by the
+        # snapshot's locks and events (index/device.py): the plan lock
+        # around its pools and caches; one lock and one CUDA event per
+        # graph cache, so each window's copies into a graph's static input,
+        # replay and copies out run behind the previous window's on any
+        # stream, and a dropped snapshot frees nothing before its last
+        # window has run; and launch counts that a capture diverts from its
+        # own thread only (ops/counts.py).
         self._lock = threading.RLock()
 
     # ------------------------------------------------------------------ #

@@ -84,6 +84,8 @@ from ..ops import fused_merge as _fm
 from ..ops import fused_query as _fq
 from ..ops import fused_z2o as _fz
 from ..ops.fused_query import _kernel_scores, fused_query_topk, gather_score, padded_rows
+from ..ops.counts import add as _recount
+from ..ops.counts import diverted as _diverted
 from ..ops.merge import INVALID_KEY
 from ..utils.metrics import metrics
 from ..utils.tokenizers import whitespace_tokenizer
@@ -478,6 +480,9 @@ def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
     live = [b for b in batches if b._packed is not None and b._packed_host is None]
     if len(live) < 2 or len({b._packed.dtype for b in live}) != 1:
         return
+    for b in live:  # windows submitted on other streams
+        if b._event is not None:
+            torch.cuda.current_stream(b._packed.device).wait_event(b._event)
     flats = [b._packed.reshape(-1) for b in live]
     with metrics.timer("query/fetch"):
         host = torch.cat(flats).cpu().numpy()
@@ -490,11 +495,12 @@ def fetch_windows_jointly(batches: Sequence["PendingBatch"]) -> None:
 
 def _launch_counters():
     """The kernel and program launch counters a window step can move (plain
-    int dicts of the wrappers): K1 / K3 by phase and by chunk width, K5 and
-    its calls by path, K4, the zero-to-one torch programs, then K1 / K3, K5
-    and K4 by card.  Capturing a step into a CUDA graph moves them though
-    nothing ran; the graph takes that back out (``_uncounted``) and adds it
-    again on every replay."""
+    int dicts of the wrappers, moved only through ``ops.counts.add``): K1 /
+    K3 by phase and by chunk width, K5 and its calls by path, K4, the
+    zero-to-one torch programs, then K1 / K3, K5 and K4 by card.  Capturing
+    a step into a CUDA graph runs nothing: the capture's counts go to the
+    graph's delta (``_uncounted``), which ``_recount`` adds on every
+    replay."""
     from ..ops import z2o_device  # imports this module: not at the top
 
     return (
@@ -504,24 +510,31 @@ def _launch_counters():
 
 
 def _uncounted(capture):
-    """Run ``capture()`` and take back out the launch counts it moved.
-    Returns (its result, [(counter, key, n), ...]) for ``_recount``."""
-    counters = _launch_counters()
-    before = [dict(c) for c in counters]
-    out = capture()
-    delta = []
-    for counts, was in zip(counters, before):
-        for key, n in counts.items():
-            if n != was.get(key, 0):
-                delta.append((counts, key, n - was.get(key, 0)))
-                counts[key] = was.get(key, 0)
+    """Run ``capture()`` with the calling thread's launch counts diverted
+    from the counters: returns (its result, its delta ``[(counters, key,
+    n), ...]``) for ``_recount``.  Other threads' counts, made meanwhile,
+    stay in the counters and out of the delta."""
+    with _diverted() as delta:
+        out = capture()
     return out, delta
 
 
-def _recount(delta) -> None:
-    """Add a captured step's launch counts (``_uncounted``) for one replay."""
-    for counts, key, n in delta:
-        counts[key] = counts.get(key, 0) + n
+def _capture(graph, step, words, stream, pool=None):
+    """Capture ``step(words)`` into the CUDA graph ``graph`` on ``stream``
+    (a side stream of the words' card) in relaxed mode, into ``pool`` (None:
+    a private pool of its own).  Returns (the step's output, its launch
+    delta).  Nothing synchronizes the card, so other threads may launch,
+    allocate and replay on it meanwhile; the capture refuses host copies."""
+
+    def run():
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="relaxed")
+            try:
+                return step(words)
+            finally:
+                graph.capture_end()
+
+    return _uncounted(run)
 
 
 class WindowGraph:
@@ -529,43 +542,51 @@ class WindowGraph:
 
     ``words`` is the static input: every class's job table back to back,
     then the F field-boost words (so one graph serves any ``fields_boost``);
-    ``packed`` is the static output, the window's packed rows.  The step's
-    tensors (``rec``, ``field_avg``), the scorer's constants, k and the
-    result format are baked into the graph: the template key carries the
-    scorer's ``device_cache_key``, k and the format, and the graph lives on
-    the ``DeviceIndex`` whose tensors it reads.  The capture runs on a side
-    stream of the words' card, whatever card is current: torch's shared
-    default capture stream lives on the card that was current when it was
-    first made, and a capture there would miss a step that runs on another
-    card.  A failed capture or replay raises; nothing falls back to the
-    eager step."""
+    ``packed`` is the static output, the window's packed rows; ``specs``
+    the template's class specs, which a window must have packed to replay
+    it.  The step's tensors (``rec``, ``field_avg``), the scorer's
+    constants, k and the result format are baked into the graph: the
+    template key carries the scorer's ``device_cache_key``, k and the
+    format, and the graph keeps the step, which holds the tensors it reads.
+    The capture runs on a side stream of the words' card, whatever card is
+    current: torch's shared default capture stream lives on the card that
+    was current when it was first made.
 
-    def __init__(self, step, words) -> None:
-        self.words = words
+    Windows run on any caller's stream, one at a time: each waits for the
+    previous window's event (``_done``), copies in, replays and copies out,
+    then records it.  Dropping the graph waits for that event, so nothing
+    it frees is still in use on a stream.  A failed capture or replay
+    raises; nothing falls back to the eager step."""
+
+    def __init__(self, step, words, specs) -> None:
+        self._done = torch.cuda.Event()
+        self.step, self.words, self.specs = step, words, specs
         self.graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.device(words.device), torch.cuda.graph(
-                self.graph, stream=torch.cuda.Stream(words.device), capture_error_mode="relaxed"
-            ):
-                return step(words)
-
-        self.packed, self._delta = _uncounted(capture)
+        self.packed, self._delta = _capture(self.graph, step, words, torch.cuda.Stream(words.device))
+        # Behind the static input's fill on the capturing thread's stream.
+        self._done.record(torch.cuda.current_stream(words.device))
         self._lock = threading.Lock()
         metrics.inc("template_graph_captures", 1)
 
     def run(self, words) -> torch.Tensor:
         """Copy a window's job words (pinned host memory) into the static
-        input, replay, and return a private device copy of the packed rows:
-        a later replay overwrites the static output before a handle that
-        does not prefetch reads it."""
+        input, replay, and return a private device copy of the packed rows,
+        all on the caller's current stream behind the previous window: a
+        later replay overwrites the static output before a handle that does
+        not prefetch reads it."""
         with self._lock:
+            stream = torch.cuda.current_stream(self.words.device)
+            stream.wait_event(self._done)
             self.words.copy_(words, non_blocking=True)
             self.graph.replay()
             packed = self.packed.clone()
+            self._done.record(stream)
         _recount(self._delta)
         metrics.inc("template_graph_replays", 1)
         return packed
+
+    def __del__(self) -> None:
+        self._done.synchronize()
 
 
 class ClassKey(NamedTuple):
@@ -613,17 +634,7 @@ class ClassGraph:
         self.step = step
         self.words = torch.zeros(n_words, dtype=torch.int32, device=device)
         self.graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.stream(stream):
-                self.graph.capture_begin(pool=pool, capture_error_mode="relaxed")
-                try:
-                    out = step(self.words)
-                finally:
-                    self.graph.capture_end()
-            return out
-
-        self.out, self._delta = _uncounted(capture)
+        self.out, self._delta = _capture(self.graph, step, self.words, stream, pool)
 
     def replay(self, pieces):
         """Copy ``pieces`` (host or device int32 tensors) back to back into
@@ -646,15 +657,19 @@ class ClassGraphs:
     ``class_graph_captures``) and replayed ever after
     (``class_graph_replays``); ``captures`` and ``replays`` count the same
     for this cache alone (one a card on a mesh), ``pool_bytes`` is the
-    memory the captures reserved.  Capture, replays and the ``_done``
-    event all run on ``device``, whatever device is current.
+    memory the card reserved while the captures ran (other threads'
+    reservations made meanwhile included).  Capture, replays and the
+    ``_done`` event all run on ``device``, whatever device is current.
 
     Every graph allocates in one shared pool, so a later capture may place
     its tensors in an earlier graph's freed temporaries: each replay's
     static output is copied out, in stream order, before the next replay
     runs, and a window's whole replay-and-copy sequence runs under one lock,
-    behind the previous window's on any stream.  A failed capture or replay
-    raises; nothing falls back to the eager step."""
+    behind the previous window's on any stream.  Dropping the cache waits
+    for the last window's event, so the graphs, their static inputs and the
+    tensors their steps read are freed only once no stream uses them.  A
+    failed capture or replay raises; nothing falls back to the eager
+    step."""
 
     def __init__(self, device) -> None:
         self.device = torch.device(device)
@@ -667,6 +682,10 @@ class ClassGraphs:
 
     def __len__(self) -> int:
         return len(self._graphs)
+
+    def __del__(self) -> None:
+        if self._done is not None:
+            self._done.synchronize()
 
     def keys(self):
         return list(self._graphs)
@@ -882,9 +901,13 @@ class DeviceIndex:
 
         Bit for bit the JAX engine's array."""
         key = _scorer_cache_key(scorer)
-        cached = self._aux_cache.get(key)
-        if cached is not None:
-            return cached
+        with self._plan_lock:  # built and uploaded once, whatever thread asks first
+            cached = self._aux_cache.get(key)
+            if cached is None:
+                cached = self._aux_cache[key] = self._build_aux(scorer)
+        return cached
+
+    def _build_aux(self, scorer):
         P = self.num_postings
         aux = np.zeros((4, P + self.CHUNK), dtype=np.int32)
         if P:
@@ -909,9 +932,7 @@ class DeviceIndex:
                     np.asarray(self.seg_term_lens[si], np.int32), reps
                 )
                 pos += n
-        arr = padded_rows(aux, self.device)
-        self._aux_cache[key] = arr
-        return arr
+        return padded_rows(aux, self.device)
 
     # ------------------------------------------------------------------ #
     # planning (host, vectorized)                                         #
@@ -1692,21 +1713,24 @@ class DeviceIndex:
             step = self._step(scorer, k, fmt, specs)
             step(words)
             if cuda:
-                self._graphs[tkey] = WindowGraph(step, words)
+                self._graphs[tkey] = WindowGraph(step, words, specs)
             n += 1
         return n
 
     def _step(self, scorer, k: int, fmt: str, class_specs, aux=None):
         """The window step of ``class_specs`` as a function of the window's
-        words (the class job tables, then the F field-boost words)."""
-        F = self.num_fields
+        words (the class job tables, then the F field-boost words).  It
+        holds the index's tensors, not the index (a ``WindowGraph`` keeps
+        its step; see ``_class_step``)."""
+        F, rec, field_avg = self.num_fields, self.rec, self.field_avg
+        qterm_bits, key_bits = self._qterm_bits, self._key_bits
 
         def step(words):
             n = words.numel() - F
             return _window_step(
-                scorer, self.rec, self.field_avg, words[n:].view(torch.float32), words[:n], aux,
-                k=k, qterm_bits=self._qterm_bits, num_fields=F, class_specs=class_specs,
-                fmt=fmt, key_bits=self._key_bits,
+                scorer, rec, field_avg, words[n:].view(torch.float32), words[:n], aux,
+                k=k, qterm_bits=qterm_bits, num_fields=F, class_specs=class_specs,
+                fmt=fmt, key_bits=key_bits,
             )
 
         return step
@@ -1858,14 +1882,16 @@ class DeviceIndex:
                         )
                         s_row, sl_row, _ = sub.get_arrays(want_keys=False)
                         hit = (s_row[0] if s_row is not None else None, sl_row[0])
-                        # LRU: dict order is insertion order and hits
-                        # re-insert, so the first key is the least recent.
+                    else:
+                        metrics.inc("heavy_cache_hits", 1)
+                    # LRU: dict order is insertion order and every use
+                    # re-inserts, so the first key is the least recent.  The
+                    # plan lock orders concurrent windows' updates.
+                    with self._plan_lock:
+                        self._heavy_cache.pop(ck, None)
                         while len(self._heavy_cache) >= self._HEAVY_CACHE_CAP:
                             del self._heavy_cache[next(iter(self._heavy_cache))]
                         self._heavy_cache[ck] = hit
-                    else:
-                        metrics.inc("heavy_cache_hits", 1)
-                        self._heavy_cache[ck] = self._heavy_cache.pop(ck)
                     array_rows[qi] = hit
                 hit_list = np.fromiter(array_rows, np.int64, len(array_rows))
                 keep = ~np.isin(plan.jquery, hit_list)
@@ -1913,6 +1939,10 @@ class DeviceIndex:
                     len(queries), plan, tkey
                 )
                 graph = self._graphs.get(tkey)
+                if graph is not None and graph.specs != tpl_specs:
+                    # A refreeze or a load on another thread changed the
+                    # template after a prewarm captured it.
+                    graph = None
             else:
                 dispatches = self.pack_dispatches(len(queries), plan)
         if not dispatches:
@@ -1982,8 +2012,9 @@ class DeviceIndex:
                 )]
             parts = [(idxs, s, d) for (idxs, *_d), (s, d) in zip(dispatches, outs)]
         event = None
-        if self.device.type == "cuda" and self.config.prefetch_results:
-            parts = [(idxs, _to_pinned(s), _to_pinned(d)) for idxs, s, d in parts]
+        if self.device.type == "cuda":
+            if self.config.prefetch_results:
+                parts = [(idxs, _to_pinned(s), _to_pinned(d)) for idxs, s, d in parts]
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         return PendingBatch(
@@ -1994,11 +2025,13 @@ class DeviceIndex:
     def _start_fetch(self, packed) -> Dict[str, Any]:
         """Start the D2H copy of a window's packed rows behind its kernels
         (``IndexConfig.prefetch_results``), so it streams while later windows
-        compute; the drain then waits on this window's event only.  Returns
-        the ``host`` / ``event`` arguments of ``PendingBatch``."""
-        if self.device.type != "cuda" or not self.config.prefetch_results:
+        compute, and record the window's event on the submitting stream
+        (with or without the copy): the drain waits on that event only, on
+        any thread and stream.  Returns the ``host`` / ``event`` arguments of
+        ``PendingBatch``."""
+        if self.device.type != "cuda":
             return {}
-        host = _to_pinned(packed)
+        host = _to_pinned(packed) if self.config.prefetch_results else None
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return {"host": host, "event": event}
@@ -2063,7 +2096,7 @@ class PendingBatch:
         self._array_rows = array_rows
         self._k = k
         self._host = host  # pinned host copy in flight (prefetch_results)
-        self._event = event  # recorded after that copy
+        self._event = event  # recorded on the submitting stream, after that copy
         self._packed_host = None  # host copy planted by fetch_windows_jointly
 
     def _unpack(self):
@@ -2071,11 +2104,10 @@ class PendingBatch:
         with metrics.timer("query/fetch"):
             if self._packed_host is not None:
                 packed = self._packed_host
-            elif self._event is not None:
-                self._event.synchronize()
-                packed = self._host.numpy()
             else:
-                packed = self._packed.cpu().numpy()
+                if self._event is not None:
+                    self._event.synchronize()
+                packed = (self._packed.cpu() if self._host is None else self._host).numpy()
         return unpack_result_rows(packed, self._fmt, self._k)
 
     def _host_parts(self):

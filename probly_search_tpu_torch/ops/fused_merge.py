@@ -20,7 +20,8 @@ kernel's shared memory after phase "lanes" (``run=C``, ``excl``,
 
 ``launches`` counts calls that launched the kernels; it moves only where
 the wrapper launches them, never on the CPU path.  ``path_calls`` counts the
-calls per path, ``device_launches`` per card (``"merge_topk@cuda:1"``).
+calls per path, ``device_launches`` per card (``"merge_topk@cuda:1"``), all
+through ``counts.add`` (safe across threads).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, counts
 from .fused_query import _check, cand_words
 from .merge import merge_scores_topk_presorted
 
@@ -189,8 +190,8 @@ def merge_scores_topk_fused(
         raise RuntimeError(
             f"merge_topk ({plan.path}) launch failed: {lib.fused_query_error_string(err).decode()}"
         )
-    launches["merge_topk"] += 1
-    path_calls[plan.path] += 1
-    key = f"merge_topk@cuda:{index}"
-    device_launches[key] = device_launches.get(key, 0) + 1
+    counts.add((
+        (launches, "merge_topk", 1), (path_calls, plan.path, 1),
+        (device_launches, f"merge_topk@cuda:{index}", 1),
+    ))
     return out_s, out_d

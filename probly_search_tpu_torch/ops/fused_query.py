@@ -10,9 +10,10 @@ tests and the chip smoke also hold the kernel against.
 ``launches`` counts kernel launches per phase, ``chunk_launches`` the same
 launches by phase and chunk width (``"full@256"``: a light class's) and
 ``device_launches`` by phase and card (``"full@cuda:1"``).  They move only
-where the wrapper launches a kernel, never on the CPU path.  A launch on any
-card leaves the caller's current device as it was (the C entries select
-their device for the call only).
+where the wrapper launches a kernel, never on the CPU path, and only
+through ``counts.add`` (safe across threads).  A launch on any card leaves
+the caller's current device as it was (the C entries select their device
+for the call only).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ..models.bm25 import BM25
-from . import _build
+from . import _build, counts
 from .merge import INVALID_KEY, merge_scores_topk_presorted
 
 launches = {"full": 0, "lanes": 0}
@@ -323,9 +324,8 @@ def fused_query_topk(
         raise RuntimeError(
             f"fused_query {phase} launch failed: {lib.fused_query_error_string(err).decode()}"
         )
-    launches[phase] += 1
-    key = f"{phase}@{C}"
-    chunk_launches[key] = chunk_launches.get(key, 0) + 1
-    key = f"{phase}@cuda:{index}"
-    device_launches[key] = device_launches.get(key, 0) + 1
+    counts.add((
+        (launches, phase, 1), (chunk_launches, f"{phase}@{C}", 1),
+        (device_launches, f"{phase}@cuda:{index}", 1),
+    ))
     return out_s, out_d

@@ -22,14 +22,15 @@ What the kernel computes per query row of L = NC * C lanes:
 
 ``launches`` counts kernel launches, ``device_launches`` the same per card
 (``"fused_z2o@cuda:1"``); they move only where the wrapper launches the
-kernel, never on the CPU path.
+kernel, never on the CPU path, and only through ``counts.add`` (safe
+across threads).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, counts
 from .fused_query import _check, cand_words, check_rec, check_tables
 from .merge import _shift_left, _shift_right, segmented_scan
 
@@ -251,7 +252,5 @@ def fused_z2o_topk(
     )
     if err:
         raise RuntimeError(f"fused_z2o launch failed: {lib.fused_query_error_string(err).decode()}")
-    launches["fused_z2o"] += 1
-    key = f"fused_z2o@cuda:{index}"
-    device_launches[key] = device_launches.get(key, 0) + 1
+    counts.add(((launches, "fused_z2o", 1), (device_launches, f"fused_z2o@cuda:{index}", 1)))
     return out_s, out_d

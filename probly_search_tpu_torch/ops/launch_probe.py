@@ -5,10 +5,10 @@ repo's probe of the fixed cost of one kernel launch.  On a CUDA tensor
 ``probe_add`` launches the hand-written kernel of ``csrc/launch_probe.cu``
 (one 16-B word a thread; a scalar kernel for a pointer that is not 16-B
 aligned); on a CPU tensor it runs ``probe_add_reference``, the plain torch
-version.  ``launches`` counts kernel launches, never the CPU path.  The
-kernel launches on the current device, so the wrapper selects the tensor's
-card for the call only (``torch.cuda.device``) and leaves the caller's as
-it was.
+version.  ``launches`` counts kernel launches (through ``counts.add``),
+never the CPU path.  The kernel launches on the current device, so the
+wrapper selects the tensor's card for the call only (``torch.cuda.device``)
+and leaves the caller's as it was.
 
 The wrapper keeps its host cost small: the library's entry point is looked
 up once, the stream is read as a raw handle, and it checks only what the
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, counts
 
 launches = {"probe_add": 0}
 
@@ -58,5 +58,5 @@ def probe_add(x):
     err = _lib.probe_add(x.data_ptr(), out.data_ptr(), n, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"probe_add launch failed: {_lib.fused_query_error_string(err).decode()}")
-    launches["probe_add"] += 1
+    counts.add(((launches, "probe_add", 1),))
     return out

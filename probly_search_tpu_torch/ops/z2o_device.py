@@ -50,6 +50,7 @@ from ..index.device import (
 from ..index.segment import probe_terms_fixed
 from ..models import zero_to_one as _z2o
 from ..utils.metrics import metrics
+from . import counts as _counts
 from .fused_merge import key_bits_for
 from .fused_z2o import (
     DOC_SHIFT,
@@ -72,7 +73,7 @@ launches = {"z2o_staged": 0, "z2o_lockstep": 0}
 
 def _count(name: str, device) -> None:
     if device.type == "cuda":
-        launches[name] += 1
+        _counts.add(((launches, name, 1),))
 
 
 def expand_chunks_z2o(jobs, chunk: int, num_chunks: int):

@@ -329,9 +329,13 @@ class ShardedDeviceIndex:
         f32 bits of the scorer's static per-term scale over the GLOBAL live
         df, row 1 the term's UTF-8 byte length.  Built once per scorer."""
         key = _scorer_cache_key(scorer)
-        cached = self._aux_cache.get(key)
-        if cached is not None:
-            return cached
+        with self._plan_lock:  # built and uploaded once, whatever thread asks first
+            cached = self._aux_cache.get(key)
+            if cached is None:
+                cached = self._aux_cache[key] = self._build_aux(scorer)
+        return cached
+
+    def _build_aux(self, scorer):
         C = self.CHUNK
         gdf = (self.g_live_cum[self.g_offsets[1:]] - self.g_live_cum[self.g_offsets[:-1]]).astype(
             np.float64
@@ -348,9 +352,7 @@ class ShardedDeviceIndex:
                 aux[0, :m] = static[t].view(np.int32)
                 aux[1, :m] = tlens[t]
             per_shard.append(aux)
-        cells = self._place(per_shard)
-        self._aux_cache[key] = cells
-        return cells
+        return self._place(per_shard)
 
     # ------------------------------------------------------------------ #
     # planning                                                            #
@@ -1133,16 +1135,18 @@ class ShardedDeviceIndex:
 
     def _start_fetch(self, rows):
         """Start the D2H copy of each data row's packed rows behind its work
-        (``IndexConfig.prefetch_results``); the drain waits on the events."""
-        if not self.config.prefetch_results:
-            return None
+        (``IndexConfig.prefetch_results``; without it ``host`` is None) and
+        record each row's event on the submitting stream: the drain waits on
+        the events, on any thread and stream."""
         fetch = []
         for d, packed in enumerate(rows):
             dev = self.mesh.devices[d, 0]
             if dev.type != "cuda":
                 return None
-            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
+            host = None
+            if self.config.prefetch_results:
+                host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                host.copy_(packed, non_blocking=True)
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev))
             fetch.append((host, event))
@@ -1386,9 +1390,9 @@ class ShardedPendingBatch:
         fetch = self._fetch[i]
         if fetch is not None:
             parts = []
-            for host, event in fetch:
+            for (host, event), packed in zip(fetch, self._packed[i]):
                 event.synchronize()
-                parts.append(host.numpy())
+                parts.append((packed.cpu() if host is None else host).numpy())
         else:
             parts = [p.cpu().numpy() for p in self._packed[i]]
         return np.stack(parts)

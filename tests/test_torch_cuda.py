@@ -5,8 +5,10 @@ so it runs where only torch is installed:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 
-The last section's cases need two or four cards (``-k "second_card or
-four_cards"``) and skip, naming the cards visible, on fewer.
+The cases of the section on several cards need two or four cards (``-k
+"second_card or four_cards"``) and skip, naming the cards visible, on
+fewer.  The last section's cases (``-k concurrent``) serve one engine from
+several threads and streams at once.
 
 Tolerance: lane keys bit-exact; scores ``rtol=2e-5, atol=1e-6``; top-k slots
 equal except that neighbours within that score tolerance may swap (the
@@ -1313,3 +1315,297 @@ def test_index_serves_on_four_cards_through_mutation_on_cuda():
         np.testing.assert_allclose(
             s[qi][: len(want)], [r.score for r in want], rtol=2e-5, atol=1e-6)
         assert (sl[qi][len(want):] == -1).all()
+
+
+# --------------------------------------------------------------------- #
+# several threads serving one engine (``-k concurrent``)                  #
+# --------------------------------------------------------------------- #
+
+# About 10 ms of the card's clock: a sleep queued first on a stream holds
+# the stream's later work until every thread has enqueued its own.
+SLEEP_CYCLES = 20_000_000
+
+
+def _threads(targets, timeout=120):
+    """Run each callable on a thread of its own; re-raise the first error."""
+    import threading
+
+    errors = []
+
+    def guard(fn):
+        try:
+            fn()
+        except BaseException as e:  # re-raised on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=guard, args=(fn,)) for fn in targets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads), "a thread did not finish"
+    if errors:
+        raise errors[0]
+
+
+def _moved_since(before):
+    """The launch counts moved since ``before`` (``_launch_counts``)."""
+    return [{key: n - was.get(key, 0) for key, n in c.items() if n != was.get(key, 0)}
+            for c, was in zip(pdev._launch_counters(), before)]
+
+
+def _summed(moves):
+    """Per counter, the sum of several windows' moved counts."""
+    total = [{} for _ in pdev._launch_counters()]
+    for moved in moves:
+        for t, m in zip(total, moved):
+            for key, n in m.items():
+                t[key] = t.get(key, 0) + n
+    return total
+
+
+def _prewarmed(ix, window, tmp_path):
+    """A fresh DeviceIndex with ``window``'s template loaded (frozen by
+    another one), not prewarmed, and the manifest's path."""
+    src = pdev.DeviceIndex(ix, device="cuda")
+    src.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    p = str(tmp_path / "t.json")
+    assert src.save_templates(p) == 1
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    assert dix.load_templates(p) == 1
+    return dix, p
+
+
+@pytest.mark.cuda
+def test_concurrent_window_graph_on_own_streams_on_cuda(tmp_path):
+    """Two threads, each under a CUDA stream of its own, replay one
+    template's ``WindowGraph`` at once, four rounds: a sleep queued first on
+    each stream holds both threads' copies, replays and copies out until
+    both are enqueued, so windows not ordered across streams would
+    overwrite each other's static input and output.  Each window's packed
+    rows equal the same window served alone, and the launches counted
+    equal the serial windows'."""
+    _cuda()
+    import threading
+
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix, window = _template_corpus()
+    dix, _p = _prewarmed(ix, window, tmp_path)
+    assert dix.prewarm(bm25.new()) == 1
+    windows = [window, window[::-1]]
+    want, serial = [], []
+    for w in windows:
+        before = _launch_counts()
+        h = dix.query_batch_async(w, bm25.new(), top_k=10)
+        h.get_arrays()
+        want.append(h._packed.cpu())
+        serial.append(_moved_since(before))
+    streams = [torch.cuda.Stream() for _ in windows]
+    barrier = threading.Barrier(2)
+    got, rounds = {}, 4
+
+    def worker(t):
+        with torch.cuda.stream(streams[t]):
+            for r in range(rounds):
+                barrier.wait(60)
+                torch.cuda._sleep(SLEEP_CYCLES)
+                h = dix.query_batch_async(windows[t], bm25.new(), top_k=10)
+                barrier.wait(60)  # both windows enqueued behind their sleeps
+                h.get_arrays()
+                got[t, r] = h._packed.cpu()
+
+    metrics.reset()
+    before = _launch_counts()
+    _threads([lambda t=t: worker(t) for t in range(2)])
+    torch.cuda.synchronize()
+    assert metrics.counters["template_graph_replays"] == 2 * rounds
+    assert _moved_since(before) == _summed(serial * rounds)
+    for (t, r), packed in got.items():
+        assert torch.equal(packed, want[t]), f"thread {t} round {r}: rows of another window"
+
+
+@pytest.mark.cuda
+def test_concurrent_capture_beside_replays_on_cuda():
+    """A thread's first window on a fresh ``DeviceIndex`` captures its
+    class graphs while another thread replays windows on a second
+    ``DeviceIndex`` of the same card: rows equal each engine's serial rows,
+    the launches counted across both threads equal the serial windows'
+    sum, and the fresh engine's graphs then replay with a serial window's
+    counts (no launch of the other thread in their deltas)."""
+    _cuda()
+    import threading
+
+    ix, window, _vocab = _class_graph_corpus()
+    other = window[::-1]
+    warm = pdev.DeviceIndex(ix, device="cuda")
+    want_w, moved_w = _serve_counted(warm, other, bm25.new(), top_k=10)
+    want_f, moved_f = _serve_counted(pdev.DeviceIndex(ix, device="cuda"), window, bm25.new(), top_k=10)
+    fresh = pdev.DeviceIndex(ix, device="cuda")
+    done = threading.Event()
+    replayed, captured = [], {}
+
+    def capturer():
+        try:
+            captured["rows"] = fresh.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+        finally:
+            done.set()
+
+    def replayer():
+        while not done.is_set() or len(replayed) < 2:
+            replayed.append(warm.query_batch_async(other, bm25.new(), top_k=10).get_arrays())
+
+    before = _launch_counts()
+    _threads([capturer, replayer])
+    torch.cuda.synchronize()
+    assert _moved_since(before) == _summed([moved_f] + [moved_w] * len(replayed))
+    for a, b in zip(captured["rows"], want_f):
+        np.testing.assert_array_equal(a, b)
+    for rows in replayed:
+        for a, b in zip(rows, want_w):
+            np.testing.assert_array_equal(a, b)
+    again, moved = _serve_counted(fresh, window, bm25.new(), top_k=10)
+    assert moved == moved_f, (moved, moved_f)
+    for a, b in zip(again, want_f):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_concurrent_snapshot_dropped_with_window_in_flight_on_cuda():
+    """Windows queued on a side stream behind a sleep, on a snapshot whose
+    class graphs were captured on the default stream: a handle that is
+    kept keeps its snapshot and drains rows equal to the serial window; a
+    snapshot dropped with its handles (the collector off) is freed only
+    once its last window has run on the side stream, so nothing it frees
+    is still read or written there."""
+    _cuda()
+    import gc
+    import weakref
+
+    ix, window, _vocab = _class_graph_corpus()
+    d = pdev.DeviceIndex(ix, device="cuda")
+    want = d.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        kept = d.query_batch_async(window, bm25.new(), top_k=10)
+        d.query_batch_async(window[::-1], bm25.new(), top_k=10)  # its handle dropped at once
+    ref = weakref.ref(d)
+    del d
+    assert ref() is not None
+    for a, b in zip(kept.get_arrays(), want):
+        np.testing.assert_array_equal(a, b)
+    del kept
+    gc.collect()
+    d = pdev.DeviceIndex(ix, device="cuda")
+    d.query_batch_async(window, bm25.new(), top_k=10).get_arrays()
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(10 * SLEEP_CYCLES)
+            d.query_batch_async(window, bm25.new(), top_k=10)
+        assert not side.query(), "the window ran before the snapshot was dropped"
+        ref = weakref.ref(d)
+        del d
+        assert ref() is None
+        assert side.query(), "the snapshot was freed while its window still ran"
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_concurrent_prewarm_while_serving_on_cuda(tmp_path):
+    """``prewarm`` on a thread while two threads serve windows of its
+    template on the same fresh ``DeviceIndex``: windows submitted before
+    the template's graph exists run on class graphs (capturing them while
+    the graph is captured), later ones replay the graph, and every window's
+    packed rows equal the serial ones."""
+    _cuda()
+    import threading
+
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix, window = _template_corpus()
+    ref, p = _prewarmed(ix, window, tmp_path)
+    assert ref.prewarm(bm25.new()) == 1
+    windows = [window, window[::-1]]
+    want = []
+    for w in windows:
+        h = ref.query_batch_async(w, bm25.new(), top_k=10)
+        h.get_arrays()
+        want.append(h._packed.cpu())
+    dix = pdev.DeviceIndex(ix, device="cuda")
+    assert dix.load_templates(p) == 1
+    started, warmed = threading.Barrier(3), threading.Event()
+    got = []
+
+    def server(t):
+        after = 0
+        for r in range(200):
+            h = dix.query_batch_async(windows[t], bm25.new(), top_k=10)
+            h.get_arrays()
+            got.append((t, h._packed.cpu()))
+            if r == 0:
+                started.wait(60)
+            after += warmed.is_set()
+            if after == 2:
+                return
+
+    def warmer():
+        started.wait(60)
+        assert dix.prewarm(bm25.new()) == 1
+        warmed.set()
+
+    metrics.reset()
+    _threads([lambda: server(0), lambda: server(1), warmer])
+    ctr = metrics.counters
+    assert ctr["template_graph_replays"] >= 2 and ctr["class_graph_replays"] > 0, dict(ctr)
+    assert not ctr.get("template_refreezes")
+    for t, packed in got:
+        assert torch.equal(packed, want[t]), f"thread {t}: rows differ from the serial window"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["one_card", "four_cards"])
+def test_concurrent_sharded_windows_on_cuda(cards):
+    """Two threads, each under a stream of its own, serve windows on one
+    ``ShardedDeviceIndex`` over ``cuda:0`` x 4, or over four cards (BM25
+    with K1, K3 + K5 and range classes, then zero-to-one): rows equal the
+    serial windows', and the launches counted equal the serial windows'
+    sum, per kernel and per card."""
+    _cards(1 if cards == "one_card" else 4)
+    torch.cuda.set_device(0)
+    from probly_search_tpu_torch import make_mesh
+    from probly_search_tpu_torch.parallel import ShardedDeviceIndex
+
+    ix, window = _sharded_corpus()
+    devices = ["cuda:0"] * 4 if cards == "one_card" else _four_cards()
+    sdix = ShardedDeviceIndex(ix, make_mesh(1, 4, devices=devices))
+    jobs = [(bm25.new(), window), (bm25.new(), window[::-1]), (None, window[:100] + ["a a"])]
+    want, serial = [], []
+    for scorer, w in jobs:
+        _h, out, moved = _sharded_served(sdix, w, scorer)
+        want.append(out)
+        serial.append(moved)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    got = []
+
+    def worker(t):
+        with torch.cuda.stream(streams[t]):
+            for j in range(len(jobs)):
+                scorer, w = jobs[(t + j) % len(jobs)]
+                torch.cuda._sleep(SLEEP_CYCLES)
+                if scorer is None:
+                    h = sdix.query_batch_z2o(w, top_k=10)
+                else:
+                    h = sdix.query_batch_async(w, scorer, top_k=10)
+                got.append(((t + j) % len(jobs), h.get_arrays()))
+
+    before = _launch_counts()
+    _threads([lambda t=t: worker(t) for t in range(2)])
+    torch.cuda.synchronize()
+    assert _moved_since(before) == _summed(serial * 2)
+    for i, rows in got:
+        for a, b in zip(rows, want[i]):
+            np.testing.assert_array_equal(a, b)
