@@ -1,0 +1,8 @@
+"""Mean host ms a window of the program's ``query/dispatch``, over the measured
+window."""
+
+from portbench.readers import timer_ms
+
+
+def read(ctx):
+    return timer_ms(ctx, "query/dispatch")
