@@ -524,7 +524,8 @@ def _capture(graph, step, words, stream, pool=None):
     (a side stream of the words' card) in relaxed mode, into ``pool`` (None:
     a private pool of its own).  Returns (the step's output, its launch
     delta).  Nothing synchronizes the card, so other threads may launch,
-    allocate and replay on it meanwhile; the capture refuses host copies."""
+    allocate and replay on it meanwhile; the capture refuses host copies.
+    Timed as ``query/capture``, class and template graphs alike."""
 
     def run():
         with torch.cuda.device(stream.device), torch.cuda.stream(stream):
@@ -534,7 +535,9 @@ def _capture(graph, step, words, stream, pool=None):
             finally:
                 graph.capture_end()
 
-    return _uncounted(run)
+    with metrics.timer("query/capture"):
+        metrics.add_items(1)
+        return _uncounted(run)
 
 
 class WindowGraph:
@@ -978,10 +981,15 @@ class DeviceIndex:
                 pool["prune_cub"] = np.zeros((0, F), np.float32)
                 pool["prune_cub_min"] = np.zeros((0, F), np.float32)
             self._plan_pools[_scorer_cache_key(scorer)] = pool
-        ids = pool["ids"]
-        miss = [t for t in uniq_terms if t not in ids]
-        if not miss:
-            return
+        miss = [t for t in uniq_terms if t not in pool["ids"]]
+        if miss:
+            with metrics.timer("plan/terms"):
+                metrics.add_items(len(miss))
+                self._plan_terms(pool, miss, scorer)
+
+    def _plan_terms(self, pool, miss: List[str], scorer) -> None:
+        """Plan the terms ``miss``, none of them pooled yet, and append
+        their rows to the term pool ``pool`` (timed as ``plan/pool``)."""
         cfg = self.config
         # Escaped probes paired with the escaped seg_terms tables; byte
         # lengths are of the raw terms.
@@ -1153,39 +1161,45 @@ class DeviceIndex:
             jidx, weights=job_chunks.astype(np.float64), minlength=M
         ).astype(np.int64) if len(jidx) else np.zeros(M, dtype=np.int64)
 
+        b = None
         if pool.get("prune_enabled"):
             with metrics.timer("query/prune_bounds"):
                 b = build_job_bounds(
                     self, scorer, np.asarray(jstart, np.int64), np.asarray(jlen, np.int64),
                     np.asarray(jrange, bool), C_, int(cfg.prune_max_top_k), float(cfg.prune_margin),
                 )
-            pool["prune_ub"] = np.concatenate([pool["prune_ub"], b["ub"]])
-            pool["prune_topv"] = np.concatenate([pool["prune_topv"], b["topv"]])
-            pool["prune_cub_off"] = np.concatenate(
-                [pool["prune_cub_off"], b["cub_off"][:-1] + len(pool["prune_cub"])]
-            )
-            pool["prune_cub"] = np.concatenate([pool["prune_cub"], b["cub"]])
-            pool["prune_cub_min"] = np.concatenate([pool["prune_cub_min"], b["cub_min"]])
 
-        base = len(pool["off"]) - 1
-        for i, t in enumerate(miss):
-            ids[str(t)] = base + i
-        pool["off"] = np.concatenate(
-            [pool["off"], pool["off"][-1] + np.cumsum(nj_per_term)]
-        )
-        pool["start"] = np.concatenate([pool["start"], jstart])
-        pool["len"] = np.concatenate([pool["len"], jlen])
-        pool["scale"] = np.concatenate([pool["scale"], scale])
-        pool["chunks"] = np.concatenate([pool["chunks"], term_chunks])
-        pool["over_cap"] = np.concatenate([pool["over_cap"], over_cap])
-        pool["range"] = np.concatenate([pool["range"], jrange])
-        # Rebuild the sorted (escaped) probe arrays; ids stay raw-keyed.
-        keys_raw = list(ids.keys())
-        esc = escape_terms_fixed(keys_raw)
-        order = np.argsort(esc)
-        pool["sorted_terms"] = esc[order]
-        vals = np.fromiter((ids[k] for k in keys_raw), dtype=np.int64, count=len(keys_raw))
-        pool["sorted_ids"] = vals[order]
+        with metrics.timer("plan/pool"):
+            metrics.add_items(len(jstart))
+            if b is not None:
+                pool["prune_ub"] = np.concatenate([pool["prune_ub"], b["ub"]])
+                pool["prune_topv"] = np.concatenate([pool["prune_topv"], b["topv"]])
+                pool["prune_cub_off"] = np.concatenate(
+                    [pool["prune_cub_off"], b["cub_off"][:-1] + len(pool["prune_cub"])]
+                )
+                pool["prune_cub"] = np.concatenate([pool["prune_cub"], b["cub"]])
+                pool["prune_cub_min"] = np.concatenate([pool["prune_cub_min"], b["cub_min"]])
+
+            ids = pool["ids"]
+            base = len(pool["off"]) - 1
+            for i, t in enumerate(miss):
+                ids[str(t)] = base + i
+            pool["off"] = np.concatenate(
+                [pool["off"], pool["off"][-1] + np.cumsum(nj_per_term)]
+            )
+            pool["start"] = np.concatenate([pool["start"], jstart])
+            pool["len"] = np.concatenate([pool["len"], jlen])
+            pool["scale"] = np.concatenate([pool["scale"], scale])
+            pool["chunks"] = np.concatenate([pool["chunks"], term_chunks])
+            pool["over_cap"] = np.concatenate([pool["over_cap"], over_cap])
+            pool["range"] = np.concatenate([pool["range"], jrange])
+            # Rebuild the sorted (escaped) probe arrays; ids stay raw-keyed.
+            keys_raw = list(ids.keys())
+            esc = escape_terms_fixed(keys_raw)
+            order = np.argsort(esc)
+            pool["sorted_terms"] = esc[order]
+            vals = np.fromiter((ids[k] for k in keys_raw), dtype=np.int64, count=len(keys_raw))
+            pool["sorted_ids"] = vals[order]
 
     # Query-plan pool caps: beyond these the pool restarts (bounds memory
     # under all-distinct traffic).
@@ -1263,16 +1277,18 @@ class DeviceIndex:
         else:
             nj_m, words_m, nch_m, rng_m = plan.njobs, plan.words, plan.nchunks, plan.has_range
             prows_m = plan.pool_rows
-        base = len(qp["off"]) - 1
-        for i, q in enumerate(miss):
-            qp["ids"][q] = base + i
-        qp["off"] = np.concatenate([qp["off"], qp["off"][-1] + np.cumsum(nj_m)])
-        qp["words"] = np.concatenate([qp["words"], words_m])
-        qp["nchunks"] = np.concatenate([qp["nchunks"], nch_m])
-        qp["njobs"] = np.concatenate([qp["njobs"], nj_m])
-        qp["has_range"] = np.concatenate([qp["has_range"], rng_m])
-        qp["fallback"] = np.concatenate([qp["fallback"], fb_m])
-        qp["pool_rows"] = np.concatenate([qp["pool_rows"], prows_m])
+        with metrics.timer("plan/pool"):
+            metrics.add_items(len(words_m))
+            base = len(qp["off"]) - 1
+            for i, q in enumerate(miss):
+                qp["ids"][q] = base + i
+            qp["off"] = np.concatenate([qp["off"], qp["off"][-1] + np.cumsum(nj_m)])
+            qp["words"] = np.concatenate([qp["words"], words_m])
+            qp["nchunks"] = np.concatenate([qp["nchunks"], nch_m])
+            qp["njobs"] = np.concatenate([qp["njobs"], nj_m])
+            qp["has_range"] = np.concatenate([qp["has_range"], rng_m])
+            qp["fallback"] = np.concatenate([qp["fallback"], fb_m])
+            qp["pool_rows"] = np.concatenate([qp["pool_rows"], prows_m])
 
     def _plan_batch_impl(self, queries: Sequence[str], tokenizer, scorer):
         B = len(queries)
@@ -1823,8 +1839,9 @@ class DeviceIndex:
         if fields_boost is None:
             fields_boost = [1.0] * self.num_fields
         k = top_k or self.config.default_top_k
-        metrics.inc("queries_submitted", len(queries))
         with metrics.timer("query/plan"):
+            if not _heavy:  # a CPU clock read is a system call: the caller's windows only
+                metrics.time_cpu()
             plan, fallback = self.plan_batch(queries, tokenizer, scorer)
         host_rows = None
         if fallback:
@@ -1876,11 +1893,13 @@ class DeviceIndex:
                     hit = self._heavy_cache.get(ck)
                     if hit is None or (hit[0] is None and need_scores):
                         metrics.inc("heavy_cache_misses", 1)
-                        sub = self.query_batch_async(
-                            [queries[qi]], scorer, tokenizer, fields_boost,
-                            top_k=cfg.heavy_cache_top_k, _heavy=True,
-                        )
-                        s_row, sl_row, _ = sub.get_arrays(want_keys=False)
+                        with metrics.timer("query/heavy_miss"):
+                            metrics.add_items(1)
+                            sub = self.query_batch_async(
+                                [queries[qi]], scorer, tokenizer, fields_boost,
+                                top_k=cfg.heavy_cache_top_k, _heavy=True,
+                            )
+                            s_row, sl_row, _ = sub.get_arrays(want_keys=False)
                         hit = (s_row[0] if s_row is not None else None, sl_row[0])
                     else:
                         metrics.inc("heavy_cache_hits", 1)
@@ -1950,7 +1969,6 @@ class DeviceIndex:
                 self, len(queries), host_rows=host_rows, k=k,
                 array_rows=array_rows, fmt=fmt,
             )
-        metrics.inc("dispatches", len(dispatches))
         class_specs = composed_class_specs(dispatches) if tpl_specs is None else tpl_specs
         with metrics.timer("query/h2d"):
             # The field boosts ride at the end of the one H2D buffer.

@@ -1177,7 +1177,6 @@ class ShardedDeviceIndex:
             fields_boost = [1.0] * self.num_fields
         k = top_k or self.config.default_top_k
         B = len(queries)
-        metrics.inc("sharded_queries_submitted", B)
         with metrics.timer("sharded/plan"):
             planned, fallback = self.plan_batch(queries, tokenizer, scorer, with_rows=True)
         pool_rows = plan_qp = plan_qids = None
@@ -1231,7 +1230,6 @@ class ShardedDeviceIndex:
         dispatch; only cap-exceeding queries run the host lockstep."""
         k = top_k or self.config.default_top_k
         B = len(queries)
-        metrics.inc("sharded_queries_submitted", B)
         with metrics.timer("sharded/plan"):
             jquery, words, qlen, max_chunks, njobs, fallback, lock_pack = self.plan_batch_z2o(
                 queries, tokenizer

@@ -1,29 +1,17 @@
 """Tracing and profiling.
 
-Counterpart of ``probly_search_tpu/utils/profiling.py``: phase-scoped wall
-timers feeding the metrics registry, and a wrapper over ``torch.profiler``
-that writes a Chrome / Perfetto trace of the host and CUDA activity.
+Counterpart of ``probly_search_tpu/utils/profiling.py``: a wrapper over
+``torch.profiler`` that writes a Chrome / Perfetto trace of the host and
+CUDA activity.  The program's spans (``utils.metrics``: ``query/plan``,
+``plan/terms``, ``query/dispatch``, ...) open ranges of their names while
+it records, so they show beside the kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator
-
-from .metrics import metrics
-
-
-@contextlib.contextmanager
-def phase(name: str) -> Iterator[None]:
-    """Wall-clock a named phase (tokenize/plan/dispatch/drain/...) into the
-    ``phase/<name>`` histogram."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        metrics.observe(f"phase/{name}", time.perf_counter() - t0)
 
 
 @contextlib.contextmanager
@@ -47,16 +35,3 @@ def device_trace(log_dir: str) -> Iterator[None]:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
-
-def annotate(name: str):
-    """Decorator: time every call of fn into the metrics registry."""
-
-    def deco(fn):
-        def wrapped(*a, **kw):
-            with phase(name):
-                return fn(*a, **kw)
-
-        wrapped.__name__ = getattr(fn, "__name__", name)
-        return wrapped
-
-    return deco

@@ -1041,6 +1041,27 @@ def _template_corpus():
 
 
 @pytest.mark.cuda
+def test_capture_span_counts_every_graph_capture_on_cuda(tmp_path):
+    """``query/capture`` opens once a capture: a template's in ``prewarm``
+    and each class graph of a window of new class shapes (no template: a
+    window of another length), inside ``query/dispatch``."""
+    _cuda()
+    from probly_search_tpu_torch.utils.metrics import metrics
+
+    ix, window = _template_corpus()
+    dix, _p = _prewarmed(ix, window, tmp_path)
+    metrics.reset()
+    assert dix.prewarm(bm25.new()) == 1
+    dix.query_batch_async(window[:30] + ["all w004 w005"], bm25.new(), top_k=10).get_arrays()
+    c, h = metrics.counters, metrics.snapshot()["histograms"]
+    assert c["template_graph_captures"] == 1 and c["class_graph_captures"] >= 1
+    assert h["query/capture"]["count"] == c["class_graph_captures"] + c["template_graph_captures"]
+    assert h["query/capture"]["items"] == h["query/capture"]["count"]
+    dispatch = h["query/dispatch"]
+    assert dispatch["self_us"] < dispatch["count"] * dispatch["mean_us"]  # the captures nest in it
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("path", ["class_graphs", "template"])
 def test_device_index_on_second_card_matches_first_on_cuda(path, tmp_path):
     """A ``DeviceIndex`` on ``cuda:1`` serves bit-equal to one on ``cuda:0``

@@ -1,7 +1,7 @@
-"""The port's tracing utilities (``probly_search_tpu_torch.utils.profiling``),
-the counterpart of the JAX package's: phase timers feed the metrics
-registry, and ``device_trace`` writes a Chrome / Perfetto trace through
-``torch.profiler`` (CPU activity here; CUDA too where a card is present)."""
+"""The port's tracing utility (``probly_search_tpu_torch.utils.profiling``),
+the counterpart of the JAX package's: ``device_trace`` writes a Chrome /
+Perfetto trace through ``torch.profiler`` (CPU activity here; CUDA too where
+a card is present).  The spans it shows are tested in ``test_torch_spans.py``."""
 
 import json
 import os
@@ -9,21 +9,6 @@ import os
 import torch
 
 from probly_search_tpu_torch.utils import profiling
-from probly_search_tpu_torch.utils.metrics import metrics
-
-
-def test_phase_and_annotate_feed_the_registry():
-    metrics.reset()
-    with profiling.phase("plan"):
-        pass
-
-    @profiling.annotate("drain")
-    def drain(x):
-        return x + 1
-
-    assert drain(1) == 2 and drain.__name__ == "drain"
-    hist = metrics.snapshot()["histograms"]
-    assert hist["phase/plan"]["count"] == 1 and hist["phase/drain"]["count"] == 1
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
