@@ -72,6 +72,7 @@ from __future__ import annotations
 import functools
 import threading
 from dataclasses import dataclass
+from itertools import repeat
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -121,6 +122,32 @@ def _host_fallback_policy(config, n: int, reason: str) -> None:
     import warnings
 
     warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def _append_rows(pool, name: str, rows: np.ndarray, limit: int = 0) -> None:
+    """Append ``rows`` to the pool column ``pool[name]`` in place.
+
+    The column is a view of the used prefix of a buffer with spare rows
+    (``pool["bufs"][name]``), so an append costs the rows it adds.  Rows
+    that do not fit reallocate the buffer at twice the rows then needed (at
+    most ``limit`` where given, never fewer than needed) and copy the prefix
+    once, in a span ``plan/pool_grow`` credited with the rows copied.  A
+    written row is never overwritten: a view taken earlier, e.g. by a
+    reader outside the plan lock, keeps its rows."""
+    used = pool[name]
+    n, need = len(used), len(used) + len(rows)
+    buf = pool["bufs"].get(name, used)
+    if need > len(buf):
+        cap = 2 * need
+        if limit:
+            cap = max(need, min(cap, limit))
+        with metrics.timer("plan/pool_grow"):
+            metrics.add_items(n)
+            buf = np.empty((cap,) + used.shape[1:], used.dtype)
+            buf[:n] = used
+        pool["bufs"][name] = buf
+    buf[n:need] = rows
+    pool[name] = buf[:need]
 
 
 @dataclass
@@ -953,9 +980,8 @@ class DeviceIndex:
         pool = self._plan_pools.get(_scorer_cache_key(scorer))
         if pool is None:
             pool = {
-                "ids": {},  # term -> dense id
-                "sorted_terms": np.zeros(0, dtype=np.str_),  # probe arrays
-                "sorted_ids": np.zeros(0, dtype=np.int64),
+                "ids": {},  # raw term -> dense id
+                "bufs": {},  # column -> its buffer with spare rows (_append_rows)
                 "off": np.zeros(1, dtype=np.int64),
                 "start": np.zeros(0, dtype=np.int64),
                 "len": np.zeros(0, dtype=np.int64),
@@ -1172,34 +1198,23 @@ class DeviceIndex:
         with metrics.timer("plan/pool"):
             metrics.add_items(len(jstart))
             if b is not None:
-                pool["prune_ub"] = np.concatenate([pool["prune_ub"], b["ub"]])
-                pool["prune_topv"] = np.concatenate([pool["prune_topv"], b["topv"]])
-                pool["prune_cub_off"] = np.concatenate(
-                    [pool["prune_cub_off"], b["cub_off"][:-1] + len(pool["prune_cub"])]
-                )
-                pool["prune_cub"] = np.concatenate([pool["prune_cub"], b["cub"]])
-                pool["prune_cub_min"] = np.concatenate([pool["prune_cub_min"], b["cub_min"]])
+                _append_rows(pool, "prune_ub", b["ub"])
+                _append_rows(pool, "prune_topv", b["topv"])
+                _append_rows(pool, "prune_cub_off", b["cub_off"][:-1] + len(pool["prune_cub"]))
+                _append_rows(pool, "prune_cub", b["cub"])
+                _append_rows(pool, "prune_cub_min", b["cub_min"])
 
             ids = pool["ids"]
             base = len(pool["off"]) - 1
             for i, t in enumerate(miss):
                 ids[str(t)] = base + i
-            pool["off"] = np.concatenate(
-                [pool["off"], pool["off"][-1] + np.cumsum(nj_per_term)]
-            )
-            pool["start"] = np.concatenate([pool["start"], jstart])
-            pool["len"] = np.concatenate([pool["len"], jlen])
-            pool["scale"] = np.concatenate([pool["scale"], scale])
-            pool["chunks"] = np.concatenate([pool["chunks"], term_chunks])
-            pool["over_cap"] = np.concatenate([pool["over_cap"], over_cap])
-            pool["range"] = np.concatenate([pool["range"], jrange])
-            # Rebuild the sorted (escaped) probe arrays; ids stay raw-keyed.
-            keys_raw = list(ids.keys())
-            esc = escape_terms_fixed(keys_raw)
-            order = np.argsort(esc)
-            pool["sorted_terms"] = esc[order]
-            vals = np.fromiter((ids[k] for k in keys_raw), dtype=np.int64, count=len(keys_raw))
-            pool["sorted_ids"] = vals[order]
+            _append_rows(pool, "off", pool["off"][-1] + np.cumsum(nj_per_term))
+            _append_rows(pool, "start", jstart)
+            _append_rows(pool, "len", jlen)
+            _append_rows(pool, "scale", scale)
+            _append_rows(pool, "chunks", term_chunks)
+            _append_rows(pool, "over_cap", over_cap)
+            _append_rows(pool, "range", jrange)
 
     # Query-plan pool caps: beyond these the pool restarts (bounds memory
     # under all-distinct traffic).
@@ -1248,6 +1263,7 @@ class DeviceIndex:
         ):
             qp = {
                 "ids": {},  # query string -> dense qid
+                "bufs": {},  # column -> its buffer with spare rows (_append_rows)
                 "off": np.zeros(1, dtype=np.int64),
                 "words": np.zeros((0, 3), dtype=np.int32),
                 "nchunks": np.zeros(0, dtype=np.int64),
@@ -1282,13 +1298,15 @@ class DeviceIndex:
             base = len(qp["off"]) - 1
             for i, q in enumerate(miss):
                 qp["ids"][q] = base + i
-            qp["off"] = np.concatenate([qp["off"], qp["off"][-1] + np.cumsum(nj_m)])
-            qp["words"] = np.concatenate([qp["words"], words_m])
-            qp["nchunks"] = np.concatenate([qp["nchunks"], nch_m])
-            qp["njobs"] = np.concatenate([qp["njobs"], nj_m])
-            qp["has_range"] = np.concatenate([qp["has_range"], rng_m])
-            qp["fallback"] = np.concatenate([qp["fallback"], fb_m])
-            qp["pool_rows"] = np.concatenate([qp["pool_rows"], prows_m])
+            # Capacity stops near the restart caps (_qplan_pool).
+            q_cap, r_cap = self._QPLAN_MAX_QUERIES + 1, self._QPLAN_MAX_ROWS
+            _append_rows(qp, "off", qp["off"][-1] + np.cumsum(nj_m), q_cap)
+            _append_rows(qp, "words", words_m, r_cap)
+            _append_rows(qp, "nchunks", nch_m, q_cap)
+            _append_rows(qp, "njobs", nj_m, q_cap)
+            _append_rows(qp, "has_range", rng_m, q_cap)
+            _append_rows(qp, "fallback", fb_m, q_cap)
+            _append_rows(qp, "pool_rows", prows_m, r_cap)
 
     def _plan_batch_impl(self, queries: Sequence[str], tokenizer, scorer):
         B = len(queries)
@@ -1307,21 +1325,18 @@ class DeviceIndex:
         flat_qterm = _segment_arange(counts).astype(np.int64)
         flat_terms = [t for toks in tok_lists for t in toks]
 
-        def lookup(pool, flat_arr):
-            st = pool["sorted_terms"] if pool is not None else None
-            if st is None or len(st) == 0:
-                return np.full(len(flat_arr), -1, np.int64)
-            p = np.minimum(np.searchsorted(st, flat_arr), len(st) - 1)
-            return np.where(st[p] == flat_arr, pool["sorted_ids"][p], -1)
+        def lookup(pool):
+            # Raw terms: a dict has no <U NUL aliasing to escape around.
+            ids = pool["ids"] if pool is not None else {}
+            return np.fromiter(map(ids.get, flat_terms, repeat(-1)), np.int64, len(flat_terms))
 
         pool = self._plan_pools.get(_scorer_cache_key(scorer))
-        flat_arr = escape_terms_fixed(flat_terms)  # matches the pool's probes
-        tids = lookup(pool, flat_arr)
+        tids = lookup(pool)
         if (tids < 0).any():
             miss = sorted({t for t, i in zip(flat_terms, tids) if i < 0})
             self._term_plans(miss, scorer)
             pool = self._plan_pools[_scorer_cache_key(scorer)]
-            tids = lookup(pool, flat_arr)
+            tids = lookup(pool)
 
         # Queries containing an over-cap term degrade to the host path.
         over = pool["over_cap"][tids]

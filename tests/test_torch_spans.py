@@ -99,7 +99,7 @@ def test_device_trace_holds_the_planner_spans(tmp_path):
         dix.query_batch_async(["w2 x5", "common"], pt.bm25.new(), top_k=5).get_arrays()
     with open(os.path.join(tmp_path, "trace.json")) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"query/plan", "plan/terms", "plan/pool"} <= names
+    assert {"query/plan", "plan/terms", "plan/pool", "plan/pool_grow"} <= names
 
 
 def test_first_sight_planning_spans_and_the_plan_split():
@@ -114,6 +114,12 @@ def test_first_sight_planning_spans_and_the_plan_split():
     (qp,) = dix._qplan_pools.values()
     assert h["plan/pool"]["count"] == 2  # the term pool, the query-plan pool
     assert h["plan/pool"]["items"] == len(pool["start"]) + len(qp["words"])
+    # Every column's first append reallocates its empty buffer, nested in
+    # plan/pool; the rows copied are the two pools' leading "off" zero.
+    grow = h["plan/pool_grow"]
+    assert grow["count"] == len(pool["bufs"]) + len(qp["bufs"]) and grow["items"] == 2
+    children = _total(h["plan/pool"]) - h["plan/pool"]["self_us"]
+    assert _total(grow) == pytest.approx(children, abs=1e-3)
     # query/plan = its self + plan/terms' self + prune bounds + pool growth
     parts = (
         h["query/plan"]["self_us"] + h["plan/terms"]["self_us"]
@@ -127,7 +133,7 @@ def test_first_sight_planning_spans_and_the_plan_split():
     dix.query_batch_async(window, pt.bm25.new(), top_k=5).get_arrays()
     h = _spans()
     assert h["query/plan"]["count"] == 1
-    assert "plan/terms" not in h and "plan/pool" not in h
+    assert "plan/terms" not in h and "plan/pool" not in h and "plan/pool_grow" not in h
 
 
 def test_heavy_cache_miss_opens_one_span():
