@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: rows the measured window drained
-against the float64 reference, by the numbers a configuration's ``check``
-names, each held to its limit.
+against the float64 reference of the cell's scorer (``reference`` of its
+file under ``portbench/scorers/``), by the numbers a configuration's
+``check`` names, each held to its limit.
 
   bad_rows       rows that return another number of documents than the
                  reference matches (up to k), a document twice, a document
@@ -22,17 +23,11 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from .reference import ReferenceIndex, bm25, rank
+from .manifest import Scorer
+from .reference import ReferenceIndex, rank
 
 
-def score_query(ix: ReferenceIndex, scorer: dict, words: List[str], precision="float64"):
-    """(docs, scores) of every document ``words`` matches."""
-    if scorer["name"] == "bm25":
-        return bm25(ix, words, float(scorer["k1"]), float(scorer["b"]), precision=precision)
-    raise ValueError(f"unknown scorer {scorer['name']!r}")
-
-
-def judge(ix: ReferenceIndex, scorer: dict, queries: Sequence[List[str]],
+def judge(ix: ReferenceIndex, scorer: Scorer, queries: Sequence[List[str]],
           rows: Sequence[np.ndarray], k: int) -> Dict[str, float]:
     """The numbers of ``rows`` (document ids, -1 past the last) against the
     float64 reference of ``queries``."""
@@ -40,7 +35,7 @@ def judge(ix: ReferenceIndex, scorer: dict, queries: Sequence[List[str]],
     bad = ties = 0
     gap = 0.0
     for words, row in zip(queries, rows):
-        docs, scores = score_query(ix, scorer, words)
+        docs, scores = scorer.reference(ix, words, scorer.spec, "float64")
         top_d, top_s = rank(docs, scores, k)
         row = np.asarray(row, np.int64)[:k]
         valid = row[row >= 0]

@@ -49,10 +49,10 @@ def controls(cell: manifest.Cell, seed: int, modes) -> list:
     for precision, ties in modes:
         rows = []
         for words in queries:
-            docs, scores = check.score_query(ref, cfg["scorer"], words, precision=precision)
+            docs, scores = cell.scorer.reference(ref, words, cell.scorer.spec, precision)
             top, _ = rank(docs, scores, k, ties=ties)
             rows.append(np.concatenate([top, np.full(k - len(top), -1)]))
-        numbers = check.judge(ref, cfg["scorer"], queries, rows, k)
+        numbers = check.judge(ref, cell.scorer, queries, rows, k)
         out.append({"seed": seed, "precision": precision, "ties": ties, **numbers,
                     "checks": check.verdict(numbers, ck["limits"])})
     return out

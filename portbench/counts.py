@@ -4,11 +4,11 @@ the card could take for them.  Nothing here reads the program, so the count
 is the same whatever chunking, class layout or kernel serves the window.
 
 Per query: every posting (one term in one document) of every term the
-query's words expand to, read once, at ``4 * (1 + F)`` bytes (the document
-id and one term frequency per field, 4 bytes each), plus the result row
-written (``k`` document ids, 4 bytes each); the operations are the scorer's
-float32 operations per posting.  A query word that appears twice is scored
-twice and counted twice.
+query's words expand to, read once, at the scorer's ``bytes_per_posting``
+(its file under ``portbench/scorers/``), plus the result row written (``k``
+document ids, 4 bytes each); the operations are the scorer's
+``ops_per_posting``, float32 operations.  A query word that appears twice is
+scored twice and counted twice.
 
 Peaks (NVIDIA's H100 SXM data sheet, at 700 W): 3.35 TB/s of HBM, 67
 TFLOP/s float32 outside the tensor cores.
@@ -23,16 +23,6 @@ from .reference.index import unique
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-
-# float32 operations per posting: BM25 per field divides the length by the
-# average, scales by b, adds 1 - b, scales by k1, adds tf, scales tf by
-# k1 + 1, divides, scales by the field boost and adds into the field sum (9);
-# per posting it scales by the term's idf times expansion boost, keeps the
-# best expansion and adds into the query sum (3).
-OPS_PER_POSTING = {
-    "bm25": lambda F: 9 * F + 3,
-}
-
 
 def postings_per_term(fields, n_docs: int, vocab_size: int) -> np.ndarray:
     """int64[V]: the documents that hold each term, in any field: its
@@ -89,11 +79,12 @@ class WorkCounter:
         return np.bincount(row, weights=full, minlength=len(rows)).astype(np.int64)
 
 
-def window_work(postings: np.ndarray, F: int, k: int, scorer: str):
-    """(bytes, operations) of requests with ``postings`` each."""
+def window_work(postings: np.ndarray, F: int, k: int, scorer):
+    """(bytes, operations) of requests with ``postings`` each, scored by
+    ``scorer`` (a ``manifest.Scorer``)."""
     p = float(np.sum(postings))
-    nbytes = p * 4 * (1 + F) + len(postings) * k * 4
-    ops = p * OPS_PER_POSTING[scorer](F)
+    nbytes = p * scorer.bytes_per_posting(F) + len(postings) * k * 4
+    ops = p * scorer.ops_per_posting(F)
     return nbytes, ops
 
 

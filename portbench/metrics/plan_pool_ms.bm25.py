@@ -1,6 +1,7 @@
-"""Host ms a window of the program's ``plan/pool``: growing the term pool
-(its concatenations, pruning bounds included, and its probe re-sort) and
-the query-plan pool.  Beside it: the job rows appended a window
+"""Host ms a window of the program's ``plan/pool``: appending the window's
+rows to the term pool (its pruning bounds' rows included) and to the
+query-plan pool, with the reallocations of a full column nested in it
+(``plan/pool_grow``).  Beside it: the job rows appended a window
 (``rows``)."""
 
 from portbench.spans import span_count, span_ms

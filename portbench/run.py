@@ -74,20 +74,18 @@ def power_limit_w():
         return None
 
 
-def build(cfg: dict, traffic: dict, data: corpus.Corpus, device: str):
-    """The program under test: an index of the corpus, its scorer and the
-    timed call."""
-    from probly_search_tpu_torch import Index, IndexConfig, bm25
+def build(cell: manifest.Cell, data: corpus.Corpus, device: str):
+    """The program under test: an index of the corpus, its scorer (the
+    ``program`` of the configuration's scorer file) and the timed call."""
+    from probly_search_tpu_torch import Index, IndexConfig
 
+    cfg, traffic = cell.config, cell.traffic
     kw = dict(cfg.get("index_config", {}))
     preset = traffic.get("index_preset")
     config = getattr(IndexConfig, preset)(**kw) if preset else IndexConfig(**kw)
     ix = Index(len(data.fields), config=config, device=device)
     ix.add_documents_columnar(list(range(data.n_docs)), data.texts)
-    sc = cfg["scorer"]
-    if sc["name"] != "bm25":
-        raise ValueError(f"unknown scorer {sc['name']!r}")
-    scorer = bm25.new(bm25k1=float(sc["k1"]), bm25b=float(sc["b"]))
+    scorer = cell.scorer.program(cell.scorer.spec)
     k = int(cfg["top_k"])
 
     def submit(queries):
@@ -114,7 +112,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     n_warm, n_stream = pool.warm, len(pool) - pool.warm
     log(f"[set-up] corpus, {n_warm} warm and {n_stream} stream requests drawn: "
         f"{time.perf_counter() - t_start:.1f} s")
-    ix, scorer, submit = build(cfg, traffic, data, device)
+    ix, scorer, submit = build(cell, data, device)
     log(f"[set-up] index built: {time.perf_counter() - t_start:.1f} s")
 
     def stream_window(wi):
@@ -211,7 +209,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
         served = np.concatenate([stream_window(wi) for wi in drained_windows])
         postings = wc.query_postings(pool, data, served)
         log(f"[work] postings per request: {time.perf_counter() - t_ref:.1f} s")
-        nbytes, ops = counts.window_work(postings, len(data.fields), k, cfg["scorer"]["name"])
+        nbytes, ops = counts.window_work(postings, len(data.fields), k, cell.scorer)
         least, bound = counts.least_seconds(nbytes, ops)
         work = {"least_s": least, "bound": bound, "bytes": nbytes, "ops": ops}
         log(f"[work] {len(drained_windows)} windows: {nbytes:.6g} B, {ops:.6g} ops, least {least:.6g} s ({bound})")
@@ -222,7 +220,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     kept_long.sort(key=lambda x: -n_words[x[0]])
     sample += kept_long[: int(traffic["check_longest"])]
     numbers = check.judge(
-        ref, cfg["scorer"], [pool.words(data, qi) for qi, _ in sample], [row for _, row in sample], k
+        ref, cell.scorer, [pool.words(data, qi) for qi, _ in sample], [row for _, row in sample], k
     )
     checks = check.verdict(numbers, cfg["check"]["limits"])
     log(f"[check] {numbers} in {time.perf_counter() - t_ref:.1f} s")
@@ -233,7 +231,7 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
         "trace": trace_summary,
         "windows": len(lat),
         "work": work,
-        "scorer": cfg["scorer"]["name"],
+        "scorer": cell.scorer.name,
         "power_w": power_limit_w() if device == "cuda" else None,
     }
     out_metrics = {}

@@ -1,8 +1,8 @@
 """Shared set-up of the benchmark's tests: the repository root on the path,
 the ``cuda`` marker, and the cells of ``BENCHMARK.json`` cut to a size a
-CPU test holds."""
+CPU test holds (one file a cell under ``tiny/``)."""
 
-import copy
+import json
 import sys
 from pathlib import Path
 
@@ -19,28 +19,26 @@ def pytest_configure(config):
     )
 
 
-# Per cell: docs, vocabulary terms, window, warm queries, stream queries
-# (the shapes are the cell's).
-TINY = {
-    "msmarco-1m.bm25": (3000, 3000, 256, 1024, 65536),
-    "msmarco-1m.typeahead": (3000, 3000, 128, 128, 2048),
-}
+def _merge(base: dict, cut: dict) -> dict:
+    """``base`` with the values of ``cut`` in place of its own, nested
+    dicts key by key."""
+    out = dict(base)
+    for key, value in cut.items():
+        out[key] = _merge(base.get(key, {}), value) if isinstance(value, dict) else value
+    return out
 
 
-def tiny_cell(name: str):
-    """The cell ``name`` with its corpus, vocabulary, window and traffic cut
-    down (a 2-letter shortest spelling, so prefixes still expand)."""
+def tiny_cell(name: str, root: Path = ROOT):
+    """The cell ``name`` of ``root/BENCHMARK.json`` cut to the size in
+    ``portbench/tests/tiny/<name>.json``: its ``config`` and ``traffic``
+    values (sizes; the shapes and the scorer stay the cell's) replace the
+    cell's own."""
     from portbench import manifest
 
-    cell = manifest.resolve(ROOT, name)
-    docs, vocab, window, warm, stream = TINY[name]
-    cfg, tr = copy.deepcopy(cell.config), copy.deepcopy(cell.traffic)
-    cfg["corpus"]["docs"] = docs
-    cfg["corpus"]["vocab"]["terms"] = vocab
-    cfg["corpus"]["vocab"]["min_len"] = 2
-    tr["check_rows"], tr["check_longest"] = 200, 8
-    tr["window"], tr["warm_queries"], tr["stream_queries"] = window, warm, stream
-    cell.config, cell.traffic = cfg, tr
+    cell = manifest.resolve(root, name)
+    cut = json.loads((root / "portbench" / "tests" / "tiny" / f"{name}.json").read_text())
+    cell.config = _merge(cell.config, cut.get("config", {}))
+    cell.traffic = _merge(cell.traffic, cut.get("traffic", {}))
     return cell
 
 

@@ -27,8 +27,7 @@ def test_work_is_independent_of_the_chunk_width(name):
     ref = ReferenceIndex(data.fields, data.n_docs, data.spell, data.spell_len)
     postings = counts.WorkCounter(ref, data).query_postings(pool, data, rows)
     F, k = len(data.fields), cell.config["top_k"]
-    scorer = cell.config["scorer"]["name"]
-    work = counts.window_work(postings, F, k, scorer)
+    work = counts.window_work(postings, F, k, cell.scorer)
 
     lanes = {}
     for chunk in (256, 1024):
@@ -41,7 +40,7 @@ def test_work_is_independent_of_the_chunk_width(name):
             for q in strings
         ])
         assert theirs.tolist() == postings.tolist()
-        assert counts.window_work(theirs, F, k, scorer) == work
+        assert counts.window_work(theirs, F, k, cell.scorer) == work
         dix = ix.device_index()
         plan, _ = dix.plan_batch(strings, whitespace_tokenizer, bm25.new())
         lanes[chunk] = int(plan.nchunks.sum()) * dix.CHUNK

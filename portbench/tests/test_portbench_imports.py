@@ -11,10 +11,13 @@ from conftest import ROOT
 
 BENCH = ROOT / "portbench"
 FORBIDDEN = {"jax", "jaxlib", "flax", "probly_search_tpu"}
+PORT = "probly_search_tpu_torch"
 
 
-def _imports(path: Path):
-    tree = ast.parse(path.read_text())
+def _imports(source):
+    """Top-level names of the modules that ``source`` (a path or a tree)
+    imports, anywhere in it."""
+    tree = ast.parse(source.read_text()) if isinstance(source, Path) else source
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name.split(".")[0] for a in node.names)
@@ -28,9 +31,24 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_and_the_yardstick_import_no_program():
-    for rel in ("reference/index.py", "reference/scorers.py", "reference/__init__.py",
-                "counts.py", "corpus.py", "check.py", "control.py"):
-        assert "probly_search_tpu_torch" not in set(_imports(BENCH / rel)), rel
+    reference = sorted(BENCH.glob("reference/**/*.py"))
+    assert reference
+    yardstick = [BENCH / f for f in ("counts.py", "corpus.py", "check.py", "control.py", "manifest.py")]
+    for path in reference + yardstick:
+        assert PORT not in set(_imports(path)), path
+
+
+def test_a_scorer_imports_the_port_only_inside_program():
+    """A scorer's reference stays independent of the program: the port is
+    imported in ``program`` alone, never at module level."""
+    paths = sorted(BENCH.glob("scorers/*.py"))
+    assert paths
+    for path in paths:
+        tree = ast.parse(path.read_text())
+        program = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "program"]
+        assert len(program) == 1, path
+        outside = ast.Module([n for n in tree.body if n is not program[0]], [])
+        assert PORT not in set(_imports(outside)), path
 
 
 def test_nothing_opens_the_repository_benchmarks_folder():

@@ -1,7 +1,7 @@
-"""The harness is driven by data: a configuration, a traffic mix and a
-metric added as new files with their manifest entries resolve without any
-file that is there being edited; and a run that finds no card fails instead
-of falling back to the CPU."""
+"""The harness is driven by data: a configuration, a scorer, a traffic mix
+and a metric added as new files with their manifest entries resolve without
+any file that is there being edited; and a run that finds no card fails
+instead of falling back to the CPU."""
 
 import hashlib
 import json
@@ -51,7 +51,8 @@ def _add_cell(root):
     (root / "portbench/metrics/plan_ms.test.py").write_text(
         "def read(ctx):\n    return 1.0\n")
     bench["per_layer"].append({"name": "windows_done", "unit": "windows", "better": "higher",
-                               "source": "program_counter", "layer": "plan", "moves": "qps"})
+                               "source": "program_counter", "layer": "plan",
+                               "moves": "peak_device_gib"})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
 
 
@@ -66,7 +67,7 @@ def test_new_files_resolve_without_editing_any(tree):
     assert cell.config["corpus"]["docs"] == 20000
     assert cell.traffic["window"] == 4096
     names = [m.name for m in cell.per_layer]
-    # No workloads list: read in every cell that reports qps, the new one too.
+    # No workloads list: read in every cell that reports peak_device_gib, the new one too.
     assert "windows_done" in names
     assert "windows_done" in [m.name for m in manifest.resolve(tree, "msmarco-1m.bm25").per_layer]
     assert "plan_ms.test" not in names  # listed for msmarco-1m.bm25 only
@@ -74,18 +75,103 @@ def test_new_files_resolve_without_editing_any(tree):
     reader = next(m for m in cell.per_layer if m.name == "windows_done").read
     assert reader({"windows": 7}) == 7
     # An end-to-end metric with a workloads list is reported in those cells only.
-    assert [m.name for m in cell.end_to_end] == ["qps", "peak_device_gib", "setup_s"]
-    assert "window_p95_ms" in [m.name for m in manifest.resolve(tree, "msmarco-1m.bm25").end_to_end]
+    assert [m.name for m in cell.end_to_end] == ["peak_device_gib", "setup_s"]
+    assert [m.name for m in manifest.resolve(tree, "msmarco-1m.bm25").end_to_end] == [
+        "window_p95_ms", "peak_device_gib", "setup_s"]
+    assert [m.name for m in manifest.resolve(tree, "msmarco-1m.typeahead").end_to_end] == [
+        "qps", "peak_device_gib", "setup_s"]
+
+
+# A scorer that exists only as a new file: BM25 under another name, with the
+# configuration's k1 and b, noting each query its reference scores.
+PROBE_SCORER = """
+from portbench.reference import scorers
+
+SCORED = []
+
+
+def program(spec):
+    from probly_search_tpu_torch import bm25
+
+    return bm25.new(bm25k1=float(spec["k1"]), bm25b=float(spec["b"]))
+
+
+def reference(ix, words, spec, precision="float64"):
+    SCORED.append(list(words))
+    return scorers.bm25(ix, words, float(spec["k1"]), float(spec["b"]), precision=precision)
+
+
+def ops_per_posting(F):
+    return 9 * F + 3
+
+
+def bytes_per_posting(F):
+    return 4 * (1 + F)
+"""
+
+
+def _add_scorer_cell(root, scorer):
+    """A configuration that names ``scorer`` and a cell of it, each a new
+    file and a new entry (the cell's CPU cut as well)."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cfg = json.loads((root / "portbench/configs/msmarco-1m.json").read_text())
+    cfg["scorer"] = {"name": scorer, "k1": 1.6, "b": 0.75}
+    (root / "portbench/configs/msmarco-probe.json").write_text(json.dumps(cfg))
+    bench["configs"].append({"name": "msmarco-probe", "source": "https://example.org/passages",
+                             "file": "portbench/configs/msmarco-probe.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "msmarco-probe.bm25", "config": "msmarco-probe",
+                               "traffic": "bm25-window16k", "chips": 1, "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    (root / "portbench/tests/tiny/msmarco-probe.bm25.json").write_text(json.dumps({
+        "config": {"corpus": {"docs": 3000, "vocab": {"terms": 3000, "min_len": 2}}},
+        "traffic": {"window": 64, "warm_queries": 64, "warm_passes": 1, "prewarm": False,
+                    "stream_queries": 4096, "rows_per_window": 16, "check_rows": 16,
+                    "check_longest": 4}}))
+
+
+def test_a_scorer_added_as_a_file_runs_a_cell(tree):
+    """The new scorer's program serves the window on the CPU and its
+    reference scores every row the check judges; no file that was there
+    changes."""
+    from portbench import run
+
+    from conftest import tiny_cell
+
+    before = _digests(tree)
+    (tree / "portbench/scorers/bm25_probe.py").write_text(PROBE_SCORER)
+    _add_scorer_cell(tree, "bm25_probe")
+    after = _digests(tree)
+    assert all(after[p] == d for p, d in before.items())
+    cell = tiny_cell("msmarco-probe.bm25", root=tree)
+    assert cell.scorer.name == "bm25_probe" and cell.scorer.spec["k1"] == 1.6
+    scored = cell.scorer.reference.__globals__["SCORED"]
+    res = run.run_cell(cell, 2**31 + 29, 0.5, False, "cpu")
+    assert res["correct"], res["checks"]
+    assert res["checked_rows"] > 0 and len(scored) == res["checked_rows"]
+
+
+def test_a_scorer_without_a_file_fails_at_resolve(tree):
+    from portbench import manifest
+
+    _add_scorer_cell(tree, "no_such_scorer")
+    with pytest.raises(FileNotFoundError) as err:
+        manifest.resolve(tree, "msmarco-probe.bm25")
+    assert str(tree / "portbench" / "scorers" / "no_such_scorer.py") in str(err.value)
 
 
 def test_every_cell_resolves_its_files():
     from portbench import manifest
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    moves = {m["name"]: m["moves"] for m in bench["per_layer"]}
     for w in bench["workloads"]:
         cell = manifest.resolve(ROOT, w["name"])
-        assert {m.name for m in cell.end_to_end} >= {"setup_s", "qps"}
+        e2e = {m.name for m in cell.end_to_end}
+        assert "setup_s" in e2e and len(e2e) >= 2, w["name"]
         assert cell.per_layer, w["name"]
+        # Each per-layer metric of a cell moves an end-to-end metric it reports.
+        assert {moves[m.name] for m in cell.per_layer} <= e2e, w["name"]
 
 
 def test_a_run_without_a_card_fails_and_prints_no_result(tree):

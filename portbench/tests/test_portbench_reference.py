@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from portbench import check, corpus
-from portbench.reference import ReferenceIndex, bm25, rank
+from portbench.reference import ReferenceIndex, rank
 
 from conftest import tiny_cell
 
@@ -36,13 +36,6 @@ def _port_index(cell, data, **config):
     return ix
 
 
-def _port_scorer(cell):
-    from probly_search_tpu_torch import bm25 as pbm25
-
-    sc = cell.config["scorer"]
-    return pbm25.new(bm25k1=sc["k1"], bm25b=sc["b"])
-
-
 @pytest.mark.parametrize("name", ["msmarco-1m.bm25", "msmarco-1m.typeahead"])
 def test_reference_equals_port_host_oracle(name):
     """Every matched document and its score, against the port's exact f64
@@ -50,11 +43,11 @@ def test_reference_equals_port_host_oracle(name):
     cell, data, strings, ref, queries = _setup(name, 120)
     ix = _port_index(cell, data)
     F = len(data.fields)
-    sc = cell.config["scorer"]
+    scorer = cell.scorer.program(cell.scorer.spec)
     expanded = 0
     for q, words in zip(strings, queries):
-        oracle = ix.query(q, _port_scorer(cell), fields_boost=[1.0] * F)
-        docs, scores = bm25(ref, words, sc["k1"], sc["b"])
+        oracle = ix.query(q, scorer, fields_boost=[1.0] * F)
+        docs, scores = cell.scorer.reference(ref, words, cell.scorer.spec)
         assert sorted(r.key for r in oracle) == docs.tolist(), q
         got = dict(zip(docs.tolist(), scores.tolist()))
         for r in oracle:
@@ -69,9 +62,10 @@ def test_port_timed_path_passes_the_check(name):
     cell, data, strings, ref, queries = _setup(name, 256)
     ix = _port_index(cell, data)
     k = cell.config["top_k"]
-    _, slots, keys = ix.query_batch_async(strings, _port_scorer(cell), top_k=k).get_arrays()
+    scorer = cell.scorer.program(cell.scorer.spec)
+    _, slots, keys = ix.query_batch_async(strings, scorer, top_k=k).get_arrays()
     rows = np.where(slots >= 0, keys, -1)
-    numbers = check.judge(ref, cell.config["scorer"], queries, list(rows), k)
+    numbers = check.judge(ref, cell.scorer, queries, list(rows), k)
     assert numbers["bad_rows"] == 0
     assert check.passed(check.verdict(numbers, cell.config["check"]["limits"])), numbers
 

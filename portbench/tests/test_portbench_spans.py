@@ -55,7 +55,29 @@ def test_each_cell_lists_the_new_metrics():
     bm25 = [m.name for m in manifest.resolve(ROOT, "msmarco-1m.bm25").per_layer]
     typeahead = [m.name for m in manifest.resolve(ROOT, "msmarco-1m.typeahead").per_layer]
     assert typeahead == old + NEW
-    assert bm25 == old + [n for n in NEW if n != "heavy_miss_ms.bm25"]  # no heavy-query cache
+    # The passage cell reads the same under its own names (they move its
+    # window_p95_ms); it has no heavy-query cache.
+    passage = [n.replace(".bm25", ".passage") for n in old + NEW if n != "heavy_miss_ms.bm25"]
+    assert bm25 == passage + ["traced_qps.passage"]
+
+
+@pytest.mark.parametrize("name", NEW + ["plan_ms.bm25", "pack_ms.bm25", "dispatch_ms.bm25"])
+def test_a_passage_reader_reads_what_its_twin_reads(name):
+    twin = name.replace(".bm25", ".passage")
+    passage = {m.name: m.read for m in manifest.resolve(ROOT, "msmarco-1m.bm25").per_layer}
+    if name == "heavy_miss_ms.bm25":
+        assert twin not in passage
+        return
+    for ctx in (_ctx(), _ctx(windows=0)):
+        assert passage[twin](ctx) == _readers([name])[name](ctx)
+
+
+def test_traced_qps_reads_what_qps_reads():
+    passage = {m.name: m.read for m in manifest.resolve(ROOT, "msmarco-1m.bm25").per_layer}
+    qps = {m.name: m.read for m in manifest.resolve(ROOT, "msmarco-1m.typeahead").end_to_end}["qps"]
+    for timed in ({"queries": 16384 * 61, "wall_s": 25.4}, {"queries": 0, "wall_s": 0.0}):
+        ctx = {"timed": timed}
+        assert passage["traced_qps.passage"](ctx) == qps(ctx)
 
 
 def test_values_and_the_keys_beside_them():
