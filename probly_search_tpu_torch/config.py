@@ -218,8 +218,9 @@ class IndexConfig:
         return cls(**kw)
 
     # Policy when a device-path query degrades to HOST-speed serving
-    # (cap-exceeding plans; z2o shared-node queries past the lockstep
-    # program's lane cap).  Host fallbacks are exact but slow: an
+    # (cap-exceeding plans; z2o queries past the class lane budget, and
+    # shared-node ones of more than 8 fields or, on the CPU, past
+    # CPU_LOCKSTEP_LANES).  Host fallbacks are exact but slow: an
     # adversarial mix of them (duplicate-term hot-prefix queries,
     # benchmarks/z2o_adversarial.py) serves orders of magnitude below a
     # normal window.

@@ -15,8 +15,10 @@ routes every query to one of three device programs:
   launch K4, ``ops/fused_z2o.py``; the rest run ``z2o_staged_fast_step``, the
   torch counterpart of the JAX engine's XLA branch;
 * the lockstep program (``z2o_step``) for shared-node queries, in torch (the
-  JAX package has no kernel for it);
-* queries past the programs' caps run the vectorized host lockstep
+  JAX package has no kernel for it), with no cap of its own on lanes;
+* queries past the planner's caps or the class lane budget, shared-node
+  queries of more than 8 fields and, on the CPU, shared-node queries past
+  ``CPU_LOCKSTEP_LANES`` run the vectorized host lockstep
   (``models/zero_to_one.vectorized_query``).
 
 On a CUDA device each class of a window replays a cached CUDA graph of its
@@ -65,6 +67,10 @@ from .fused_z2o import (
 from .merge import _shift_left, _shift_right, segmented_scan
 
 _I32_MAX = 2**31 - 1
+# On the CPU the vectorized host lockstep outruns the lockstep program's
+# loop of NJ segmented scans past this many entry lanes a query; on a card
+# the lockstep program takes every width.
+CPU_LOCKSTEP_LANES = 16384
 _LEN_BITS = 26
 _QT_BITS = 4
 
@@ -303,9 +309,15 @@ def plan_batch_z2o(dix, queries, tokenizer):
 
 
 def _z2o_qplan_insert(dix, pool, miss, tokenizer):
-    """Plan first-seen queries through the full path and pool the per-query
-    job rows (a query's rows are contiguous: ``jquery`` ascends)."""
-    jquery, words, qlen, nchunks, njobs, fb, shared = _plan_batch_z2o_impl(dix, miss, tokenizer)
+    """Plan first-seen queries through the full path (span
+    ``z2o/plan_terms``, items = the queries) and pool the per-query job rows
+    (``z2o/plan_pool``, items = the rows; a query's rows are contiguous:
+    ``jquery`` ascends)."""
+    with metrics.timer("z2o/plan_terms"):
+        metrics.add_items(len(miss))
+        jquery, words, qlen, nchunks, njobs, fb, shared = _plan_batch_z2o_impl(
+            dix, miss, tokenizer
+        )
     M = len(miss)
     fb_m = np.zeros(M, dtype=bool)
     fb_m[list(fb)] = True
@@ -320,16 +332,18 @@ def _z2o_qplan_insert(dix, pool, miss, tokenizer):
         words_m = words
         nchunks_m = nchunks
         shared_m = shared
-    base = len(pool["off"]) - 1
-    for i, q in enumerate(miss):
-        pool["ids"][q] = base + i
-    pool["off"] = np.concatenate([pool["off"], pool["off"][-1] + np.cumsum(njobs_m)])
-    pool["words"] = np.concatenate([pool["words"], words_m])
-    pool["qlen"] = np.concatenate([pool["qlen"], qlen.astype(np.float32)])
-    pool["nchunks"] = np.concatenate([pool["nchunks"], nchunks_m])
-    pool["njobs"] = np.concatenate([pool["njobs"], njobs_m])
-    pool["shared"] = np.concatenate([pool["shared"], shared_m])
-    pool["fallback"] = np.concatenate([pool["fallback"], fb_m])
+    with metrics.timer("z2o/plan_pool"):
+        metrics.add_items(len(words_m))
+        base = len(pool["off"]) - 1
+        for i, q in enumerate(miss):
+            pool["ids"][q] = base + i
+        pool["off"] = np.concatenate([pool["off"], pool["off"][-1] + np.cumsum(njobs_m)])
+        pool["words"] = np.concatenate([pool["words"], words_m])
+        pool["qlen"] = np.concatenate([pool["qlen"], qlen.astype(np.float32)])
+        pool["nchunks"] = np.concatenate([pool["nchunks"], nchunks_m])
+        pool["njobs"] = np.concatenate([pool["njobs"], njobs_m])
+        pool["shared"] = np.concatenate([pool["shared"], shared_m])
+        pool["fallback"] = np.concatenate([pool["fallback"], fb_m])
 
 
 def _plan_batch_z2o_impl(dix, queries, tokenizer):
@@ -669,12 +683,15 @@ def z2o_query_batch(dix, queries, tokenizer, top_k, scorer=None):
 
 
 def plan_window(dix, queries, tokenizer, k: int, scorer=None):
-    """The host half of a z2o window: plan, host rows for the queries past
-    the device caps, routing and class packing.  Returns (host_rows,
-    class_specs, layout, word_parts, qlen_parts); see ``pack_classes``."""
+    """The host half of a z2o window: plan (span ``z2o/plan``, with the
+    thread's CPU time), host rows for the queries past the device caps
+    (``z2o/host_rows``, items = those queries), routing and class packing
+    (``z2o/pack``).  Returns (host_rows, class_specs, layout, word_parts,
+    qlen_parts); see ``pack_classes``."""
     B = len(queries)
     host_rows = {}
     with metrics.timer("z2o/plan"):
+        metrics.time_cpu()
         jquery, words, qlen, nchunks, njobs, fallback, shared = plan_batch_z2o(
             dix, queries, tokenizer
         )
@@ -684,38 +701,48 @@ def plan_window(dix, queries, tokenizer, k: int, scorer=None):
         metrics.inc("device_fallback_queries", len(fallback))
         _host_fallback_policy(dix.config, len(fallback), "z2o device plan caps exceeded")
         plain = scorer is None or type(scorer) is _z2o.ZeroToOne
-        for qi in fallback:
-            host_rows[qi] = (
-                _z2o.ZeroToOne.vectorized_query(dix._index, queries[qi], tokenizer, top_k=k)
-                if plain
-                else dix._index.query(
-                    queries[qi], scorer, tokenizer, [1.0] * dix.num_fields, top_k=k
+        with metrics.timer("z2o/host_rows"):
+            metrics.add_items(len(fallback))
+            for qi in fallback:
+                host_rows[qi] = (
+                    _z2o.ZeroToOne.vectorized_query(dix._index, queries[qi], tokenizer, top_k=k)
+                    if plain
+                    else dix._index.query(
+                        queries[qi], scorer, tokenizer, [1.0] * dix.num_fields, top_k=k
+                    )
                 )
-            )
     if jquery is None:
         return host_rows, [], [], [], []
 
     C = dix.CHUNK
     F = max(dix.num_fields, 1)
     nc_bucket = _bucket_vec(nchunks, dix.nc_buckets, dix.nc_min)
-    # Routing (as the JAX engine): shared-node-free queries take the fast
-    # program; shared-node queries the lockstep program, whose field packs
-    # into 3 key bits (F <= 8) and whose lanes stay within 16,384; bigger or
-    # wider ones, and fast queries past the class lane budget, run the
-    # vectorized host lockstep.
+    # Routing: shared-node-free queries take the fast program, shared-node
+    # queries the lockstep program, whose field packs into 3 key bits
+    # (F <= 8).  On a card a query of either program runs there up to the
+    # class lane budget (the JAX engine also sends lockstep queries past
+    # 16,384 lanes to the host: a cap on its compile, and the torch program
+    # compiles nothing).  Wider schemas, queries past the budget and, on the
+    # CPU, lockstep queries past ``CPU_LOCKSTEP_LANES`` run the vectorized
+    # host lockstep.
     fast_ok = dix.num_slots < (1 << 27)
     fastq = (~shared) & fast_ok
     lanes = np.where(fastq, nc_bucket * C, nc_bucket * C * F)
-    huge = (~fastq & ((lanes > 16384) | (F > 8))) | (fastq & (lanes > dix.LANES_PER_DISPATCH))
+    huge = (~fastq & (F > 8)) | (lanes > dix.LANES_PER_DISPATCH)
+    if dix.rec.device.type == "cpu":
+        huge |= ~fastq & (lanes > CPU_LOCKSTEP_LANES)
     if huge.any():
         metrics.inc("z2o_host_vectorized_queries", int(huge.sum()))
         _host_fallback_policy(
-            dix.config, int(huge.sum()), "z2o shared-node queries past the lockstep compile cap"
+            dix.config, int(huge.sum()), "z2o queries past the device lane caps"
         )
-        for qi in np.flatnonzero(huge & (njobs > 0)):
-            host_rows[int(qi)] = _z2o.ZeroToOne.vectorized_query(
-                dix._index, queries[int(qi)], tokenizer, top_k=k
-            )
+        served = np.flatnonzero(huge & (njobs > 0))
+        with metrics.timer("z2o/host_rows"):
+            metrics.add_items(len(served))
+            for qi in served:
+                host_rows[int(qi)] = _z2o.ZeroToOne.vectorized_query(
+                    dix._index, queries[int(qi)], tokenizer, top_k=k
+                )
         nc_bucket = np.where(huge, -1, nc_bucket)
     srank = score_rank(jquery, words) if fastq.any() and len(words) else None
     with metrics.timer("z2o/pack"):

@@ -273,6 +273,36 @@ def test_z2o_kernel_refuses_unaligned_rec_on_cuda():
 
 
 @pytest.mark.cuda
+def test_wide_lockstep_queries_run_on_cuda(monkeypatch):
+    """Shared-node queries past 16,384 lockstep lanes replay a lockstep
+    class graph on the card (no host row) and give the rows of the same
+    program on the CPU (admitted there past ``CPU_LOCKSTEP_LANES``)."""
+    _cuda()
+    from probly_search_tpu_torch import Index
+    from probly_search_tpu_torch.ops import z2o_device as pz
+    from probly_search_tpu_torch.utils.tokenizers import whitespace_tokenizer
+
+    monkeypatch.setattr(pz, "CPU_LOCKSTEP_LANES", 1 << 30)
+    n = 20000
+    titles = [f"abc{' abc' * (i % 3)} t{i % 7}" for i in range(n)]
+    texts = [f"abcd u{i % 5}{' abc' * (i % 2)}" for i in range(n)]
+    queries = ["abc abc", "abc t3 abc", "t1 u2", "abcd abc u1"]
+    rows = []
+    for device in ("cpu", "cuda"):
+        ix = Index(2, device=device)
+        ix.add_documents_columnar(list(range(n)), [titles, texts])
+        dix = ix.device_index()
+        nchunks = pz.plan_batch_z2o(dix, queries, whitespace_tokenizer)[3]
+        assert (pz._bucket_vec(nchunks[:2], dix.nc_buckets, dix.nc_min) * dix.CHUNK * 2 > 16384).all()
+        pending = pz.z2o_query_batch_async(dix, queries, whitespace_tokenizer, 10, fmt="f32")
+        s, d, _ = pending.get_arrays(want_keys=False)
+        assert not pending._host_rows
+        rows.append((s, d))
+    assert dix._class_graphs.captures > 0
+    assert_topk_agree(*rows[0], *rows[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("NC", [17, 24, 32])
 def test_lanes_kernel_matches_plain_on_cuda(NC):
     """K3 (phase "lanes") at NC 17, 24 and 32 over 1,024-lane chunks, with

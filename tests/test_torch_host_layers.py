@@ -118,6 +118,18 @@ def test_same_oracle(pair, scorer):
         assert [(r.key, r.score) for r in gotv] == wantv, q
 
 
+def test_z2o_vectorized_ranks_every_match(pair):
+    """Without ``top_k`` the port's vectorized zero-to-one returns every
+    matched document in the JAX package's order (score descending, ties to
+    the lowest slot), and a ``top_k`` cut is that order's head."""
+    j, p, queries = pair
+    jv, pv = type(jz2o.new()).vectorized_query, type(pt.zero_to_one.new()).vectorized_query
+    for q in queries:
+        want = [(r.key, r.score) for r in jv(j, q, tokenizer=tokenizer, top_k=None)]
+        assert [(r.key, r.score) for r in pv(p, q, tokenizer=tokenizer, top_k=None)] == want, q
+        assert [(r.key, r.score) for r in pv(p, q, tokenizer=tokenizer, top_k=3)] == want[:3], q
+
+
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 def test_snapshot_crosses(pair, direction):
     j, p, _ = pair

@@ -30,6 +30,7 @@ import probly_search_tpu_torch as pt
 from probly_search_tpu_torch.ops import fused_z2o as fz
 from probly_search_tpu_torch.ops import z2o_device as pz
 from probly_search_tpu_torch.testing import assert_topk_agree
+from probly_search_tpu_torch.utils.metrics import metrics
 
 from .util import Doc, text_extract, title_extract, tokenizer
 
@@ -363,6 +364,34 @@ def test_wide_schema_routes_to_host_lockstep():
     for q, row in zip(queries, rows):
         oracle = p.query(q, pt.zero_to_one.new(), tokenizer, [1.0] * F)[:5]
         assert [(r.key, r.score) for r in row] == [(r.key, r.score) for r in oracle]
+
+
+def test_wide_lockstep_query_runs_on_the_device(monkeypatch):
+    """A shared-node query past 16,384 lockstep lanes (the JAX engine's cap,
+    which sends it to the host) runs the lockstep program like any other on
+    a card: no host row, and the oracle's top-k.  On the CPU such a query
+    takes the host path unless ``CPU_LOCKSTEP_LANES`` admits it."""
+    n = 2500
+    p = pt.Index(2, config=pt.IndexConfig(chunk_size=128), device="cpu")
+    p.add_documents_columnar(
+        list(range(n)),
+        [[f"abc{' abc' * (i % 3)} t{i % 7}" for i in range(n)],
+         [f"abcd u{i % 5}{' abc' * (i % 2)}" for i in range(n)]],
+    )
+    dix = p.device_index()
+    queries = ["abc abc", "abc t3 abc", "t1 u2"]
+    plan = pz.plan_batch_z2o(dix, queries, tokenizer)
+    nchunks, shared = plan[3], plan[6]
+    lanes = pz._bucket_vec(nchunks, dix.nc_buckets, dix.nc_min) * dix.CHUNK * 2
+    assert list(shared) == [True, True, False] and (lanes[:2] > 16384).all()
+    assert set(pz.z2o_query_batch_async(dix, queries, tokenizer, K)._host_rows) == {0, 1}
+    monkeypatch.setattr(pz, "CPU_LOCKSTEP_LANES", 1 << 30)
+    metrics.reset()
+    pending = pz.z2o_query_batch_async(dix, queries, tokenizer, K)
+    s, d = pending.get_arrays()[:2]
+    assert not pending._host_rows and "z2o_host_vectorized_queries" not in metrics.snapshot()["counters"]
+    want = [p.query(q, pt.zero_to_one.new(), tokenizer, [1.0, 1.0])[:K] for q in queries]
+    assert_topk_agree(s, d, *_rows_arrays(p, want))
 
 
 def test_device_index_routes_two_phase_scorers(mixed):
